@@ -1,0 +1,243 @@
+// Flat exact k-NN over a bf16 corpus: streamed distances + running top-k.
+//
+// Replaces expann_tpu/ops/pallas_topk.py:_topk_merge_kernel_count (the
+// `flat_topk(mode="count")` Pallas kernel, launcher :286, call :325).
+//
+// What it computes: for every query q (bf16-rounded) the k nearest corpus
+// rows by squared L2, d = (|q|^2 + |x|^2) - 2 q.x clamped at 0, with all
+// products and sums in f32, ordered by (d, id).  Selection is EXACT per
+// row: the TPU kernel's 128-lane pooling (pallas_topk.py:95-101) and its
+// packed (distance | lane) keys are not carried over, so the plain
+// reference for this kernel is the exact oracle.  The (B, N) distance
+// matrix is never written to device memory.
+//
+// What bounds it on this card: f32 FMA issue.  B x N x D multiply-adds
+// (65536 x 56000 x 128 = 470 G) against ~67 TFLOP/s of non-tensor f32; the
+// corpus (56000 x 128 bf16 = 14 MB) stays in the 50 MB L2, so device
+// memory is not the limit.  Tensor cores (bf16 wgmma) would lift the
+// bound ~15x; that is later work — this kernel is the simple, right one.
+//
+// Design: one block of 256 threads per tile of QB=64 queries.  The query
+// tile sits in shared memory as f32, transposed (feature-major).  The
+// block streams the corpus in tiles of CT=64 rows, each staged in DK=64
+// feature chunks, transposed, so that every thread computes a 4x4 register
+// micro-tile (4 queries x 4 rows) from two 16-byte shared loads per
+// feature.  The 64x64 tile distances go to shared memory; then each warp
+// merges 8 queries: a ballot finds the candidates below the query's
+// current k-th (d, id), and only those are inserted, warp-cooperatively,
+// into a sorted running list in shared memory — the count-then-insert
+// idea of the TPU kernel, exact.  Late tiles rarely insert anything.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int QB = 64;        // queries per block
+constexpr int CT = 64;        // corpus rows per tile
+constexpr int DK = 64;        // features staged per chunk
+constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int KMAX = 128;     // largest k (4 list slots per lane)
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ bool pair_less(float ad, int ai, float bd, int bi) {
+  return ad < bd || (ad == bd && ai < bi);
+}
+
+// Insert (vd, vi) into the ascending list (Ld, Li) of length k if it beats
+// the last entry.  Called by a whole warp with the same (vd, vi).
+__device__ void warp_insert(float* Ld, int* Li, int k, float vd, int vi, int lane) {
+  if (!pair_less(vd, vi, Ld[k - 1], Li[k - 1])) return;
+  int pos = 0;
+  for (int s0 = 0; s0 < k; s0 += 32) {
+    const int s = s0 + lane;
+    const bool before = s < k && pair_less(Ld[s], Li[s], vd, vi);
+    pos += __popc(__ballot_sync(FULL, before));
+  }
+  float nd[KMAX / 32];
+  int ni[KMAX / 32];
+#pragma unroll
+  for (int t = 0; t < KMAX / 32; ++t) {
+    const int s = lane + 32 * t;
+    nd[t] = 0.f;
+    ni[t] = 0;
+    if (s < k && s >= pos) {
+      if (s == pos) {
+        nd[t] = vd;
+        ni[t] = vi;
+      } else {
+        nd[t] = Ld[s - 1];
+        ni[t] = Li[s - 1];
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < KMAX / 32; ++t) {
+    const int s = lane + 32 * t;
+    if (s < k && s >= pos) {
+      Ld[s] = nd[t];
+      Li[s] = ni[t];
+    }
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(THREADS)
+flat_topk_kernel(const __nv_bfloat16* __restrict__ q,  // (B, D)
+                 const __nv_bfloat16* __restrict__ x,  // (n, D)
+                 int n, int B, int D, int k,
+                 int* __restrict__ out_ids,    // (B, k)
+                 float* __restrict__ out_d) {  // (B, k)
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [D][QB] query tile, transposed
+  float* xs = qs + D * QB;                      // [DK][CT] corpus chunk, transposed
+  float* ds = xs + DK * CT;                     // [QB][CT] tile distances
+  float* qn = ds + QB * CT;                     // [QB]
+  float* xn = qn + QB;                          // [CT]
+  float* ld = xn + CT;                          // [QB][k] running top-k, ascending
+  int* li = reinterpret_cast<int*>(ld + QB * k);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int tx = tid & 15, ty = tid >> 4;  // rows 4tx.., queries 4ty..
+  const int q0 = blockIdx.x * QB;
+
+  for (int i = tid; i < QB * D; i += THREADS) {
+    const int qi = i / D, c = i - qi * D;
+    qs[c * QB + qi] = (q0 + qi < B) ? __bfloat162float(q[(size_t)(q0 + qi) * D + c]) : 0.f;
+  }
+  for (int i = tid; i < QB * k; i += THREADS) {
+    ld[i] = INFINITY;
+    li[i] = -1;
+  }
+  __syncthreads();
+  if (tid < QB) {
+    float s = 0.f;
+    for (int c = 0; c < D; ++c) {
+      const float v = qs[c * QB + tid];
+      s = fmaf(v, v, s);
+    }
+    qn[tid] = s;
+  }
+
+  for (int r0 = 0; r0 < n; r0 += CT) {
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    float xnorm = 0.f;
+
+    for (int c0 = 0; c0 < D; c0 += DK) {
+      __syncthreads();  // the previous chunk (and tile merge) is consumed
+      // stage rows r0..r0+CT, features c0..c0+DK: 16-byte loads, one row
+      // per thread, conflict-free transposed stores
+      for (int i = tid; i < CT * (DK / 8); i += THREADS) {
+        const int row = i % CT, c8 = (i / CT) * 8;
+        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+        if (r0 + row < n)
+          raw = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(r0 + row) * D + c0 + c8));
+        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(h2[j]);
+          xs[(c8 + 2 * j) * CT + row] = f.x;
+          xs[(c8 + 2 * j + 1) * CT + row] = f.y;
+        }
+      }
+      __syncthreads();
+      if (tid < CT) {
+        for (int c = 0; c < DK; ++c) {
+          const float v = xs[c * CT + tid];
+          xnorm = fmaf(v, v, xnorm);
+        }
+      }
+#pragma unroll 8
+      for (int c = 0; c < DK; ++c) {
+        const float4 a = *reinterpret_cast<const float4*>(&qs[(c0 + c) * QB + 4 * ty]);
+        const float4 b = *reinterpret_cast<const float4*>(&xs[c * CT + 4 * tx]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    if (tid < CT) xn[tid] = xnorm;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = 4 * ty + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = 4 * tx + j;
+        float d = fmaxf((qn[qi] + xn[row]) - 2.f * acc[i][j], 0.f);
+        if (r0 + row >= n) d = INFINITY;
+        ds[qi * CT + row] = d;
+      }
+    }
+    __syncthreads();
+    for (int qi = warp; qi < QB; qi += THREADS / 32) {
+      float* Ld = ld + qi * k;
+      int* Li = li + qi * k;
+#pragma unroll
+      for (int j = 0; j < CT / 32; ++j) {
+        const int row = lane + 32 * j;
+        const float cd = ds[qi * CT + row];
+        const int ci = r0 + row;
+        const bool cand = r0 + row < n && pair_less(cd, ci, Ld[k - 1], Li[k - 1]);
+        unsigned mask = __ballot_sync(FULL, cand);
+        while (mask) {
+          const int src = __ffs(mask) - 1;
+          mask &= mask - 1;
+          const float vd = __shfl_sync(FULL, cd, src);
+          const int vi = __shfl_sync(FULL, ci, src);
+          warp_insert(Ld, Li, k, vd, vi, lane);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < QB * k; i += THREADS) {
+    const int qi = i / k;
+    if (q0 + qi < B) {
+      out_ids[(size_t)q0 * k + i] = li[i];
+      out_d[(size_t)q0 * k + i] = ld[i];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int expann_flat_topk_smem_bytes(int D, int k) {
+  return (int)sizeof(float) * (D * QB + DK * CT + QB * CT + QB + CT + QB * k) +
+         (int)sizeof(int) * QB * k;
+}
+
+// Launch on `stream`; returns cudaGetLastError() (0 on success).  The
+// caller guarantees: D % 64 == 0, 1 <= k <= 128, rows 16-byte aligned.
+int expann_flat_topk_bf16(const void* q, const void* x, int n, int B, int D, int k,
+                          void* out_ids, void* out_d, void* stream) {
+  if (k < 1 || k > KMAX || D % DK != 0) return (int)cudaErrorInvalidValue;
+  const int smem = expann_flat_topk_smem_bytes(D, k);
+  cudaError_t err = cudaFuncSetAttribute(
+      flat_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + QB - 1) / QB);
+  flat_topk_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)x, n, B, D, k, (int*)out_ids,
+      (float*)out_d);
+  return (int)cudaGetLastError();
+}
+
+const char* expann_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -1,0 +1,15 @@
+from expann_tpu_torch.data.dataset import TestDataset
+from expann_tpu_torch.data.loader import (
+    load_sift1m,
+    load_sift1m_custom,
+    load_synthetic_uniform_sphere_points,
+    read_vecs,
+)
+
+__all__ = [
+    "TestDataset",
+    "load_synthetic_uniform_sphere_points",
+    "load_sift1m",
+    "load_sift1m_custom",
+    "read_vecs",
+]

@@ -1,0 +1,270 @@
+"""The Anti-Topo engine: public API (counterpart of
+expann_tpu/models/antitopo.py).
+
+Same surface as the reference's ``antitopo_engine<float>`` and its pybind11
+bindings (src/antitopo_engine.h:103-260, src/pyrunner.cpp:55-91):
+``store_vector`` / ``store_many_vectors`` / ``build`` / ``query_k`` /
+``query_k_numpy`` / ``set_ef_search`` / ``name`` / ``param_list``.
+
+Queries of every batch size run the fused traversal over the bf16 packed
+layout: on a CUDA device through the hand-written kernel, on the CPU
+through its plain version.  ``num_distcomps`` counts the distance
+evaluations of queries (RECORD_STATS, src/antitopo_engine.h:125-129); it
+resets on ``build`` and on ``set_ef_search``.
+
+Not ported yet: ``use_compression`` (s8 packed blocks), the i8 query wire,
+``ortho_count > 1`` and the wave builders; they raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from expann_tpu_torch.models.base import Engine, ParamList, _concat_pending, format_param
+from expann_tpu_torch.models.build import BuildConfig, build_index
+from expann_tpu_torch.models.graph import GraphIndex
+from expann_tpu_torch.models.search import fused_query_batch
+from expann_tpu_torch.ops.distance import pad_dim
+from expann_tpu_torch.ops.packed import build_packed
+from expann_tpu_torch.utils.persist import index_exists, load_index, save_index
+
+ENTRY_SCAN_MAX = 65536  # largest upper layer the dense entry scan takes
+
+
+@dataclasses.dataclass
+class AntitopoConfig:
+    """Parameter set, mirroring antitopo_engine_config
+    (reference: src/antitopo_engine.h:72-101) and the JAX package's knobs
+    that the ported path reads."""
+
+    M: int = 60
+    M0: int = 0  # 0 -> 2 * M
+    ef_search_mult: int = 1
+    ef_search: Optional[int] = None
+    ef_construction: int = 500
+    ortho_count: int = 1
+    ortho_factor: float = 0.5
+    ortho_bias: float = 0.0
+    prune_overflow: int = 0
+    use_compression: bool = False
+    use_largest_direction_filtering: bool = False  # no-op, as in reference
+    index_filename: str = ""
+    read_index: bool = False
+    write_index: bool = False
+    seed: int = 0
+    # "default" and "highest" are both full fp32 in this package (TF32 off)
+    precision: str = "highest"
+    prune_cand: int = 0  # candidate-list cap fed to the prune; 0 -> auto
+    query_block: int = 1024
+    query_expand: int = 1  # beam entries expanded per traversal iteration
+    builder: str = "auto"  # "oneshot" | "auto"
+    fused_cand: int = 8  # candidates kept per iteration, split over query_expand
+    packed_dtype: str = "bf16"
+    query_wire: str = "bf16"
+    # >0: seed the beam with the top-entry_seeds members of the largest
+    # upper layer (<= 65536 members) by one dense scan; 0 keeps the
+    # reference's greedy descent
+    entry_seeds: int = 0
+
+    def __post_init__(self):
+        if self.M0 == 0:
+            self.M0 = 2 * self.M
+
+
+class AntitopoEngine(Engine):
+    """Anti-Topo Engine+ on PyTorch.  ``device`` has no default: the caller
+    names it (``"cuda"`` to serve on the card, ``"cpu"`` for the plain
+    versions)."""
+
+    def __init__(
+        self,
+        M: int = 60,
+        ef_construction: int = 500,
+        ortho_count: int = 1,
+        prune_overflow: int = 0,
+        use_compression: bool = False,
+        config: Optional[AntitopoConfig] = None,
+        *,
+        device,
+    ):
+        if config is None:
+            config = AntitopoConfig(
+                M=M,
+                ef_construction=ef_construction,
+                ortho_count=ortho_count,
+                prune_overflow=prune_overflow,
+                use_compression=use_compression,
+            )
+        if config.use_compression or config.packed_dtype != "bf16":
+            raise NotImplementedError("use_compression / s8 packed blocks are not ported yet: ROADMAP.md queue 1")
+        if config.query_wire != "bf16":
+            raise NotImplementedError("the i8 query wire is not ported yet: ROADMAP.md queue 1")
+        self.cfg = config
+        self.device = torch.device(device)
+        self._pending: List[np.ndarray] = []
+        self.graph: Optional[GraphIndex] = None
+        self.n = 0
+        self.dim = 0
+        self.num_distcomps = 0
+        self.num_distcomps_compressed = 0
+        self.total_query_time_ns = 0.0
+
+    # --- identity / params -------------------------------------------------
+    def name(self) -> str:
+        return "Anti-Topo Engine+"
+
+    def param_list(self) -> ParamList:
+        c = self.cfg
+        return {
+            "M": format_param(c.M),
+            "M0": format_param(c.M0),
+            "ef_search_mult": format_param(c.ef_search_mult),
+            "ef_construction": format_param(c.ef_construction),
+            "ortho_count": format_param(c.ortho_count),
+            "ortho_factor": format_param(c.ortho_factor),
+            "ortho_bias": format_param(c.ortho_bias),
+            "prune_overflow": format_param(c.prune_overflow),
+            "use_compression": format_param(c.use_compression),
+            "use_largest_direction_filtering": format_param(c.use_largest_direction_filtering),
+            "num_distcomps": format_param(self.num_distcomps),
+            "num_distcomps_compressed": format_param(self.num_distcomps_compressed),
+        }
+
+    # --- ingest ------------------------------------------------------------
+    def store_vector(self, v: np.ndarray) -> None:
+        self._pending.append(np.asarray(v, dtype=np.float32).reshape(1, -1))
+
+    def store_many_vectors(self, vs: np.ndarray, take_norms: bool = False) -> None:
+        vs = np.asarray(vs, dtype=np.float32)
+        if vs.ndim != 2:
+            raise ValueError("Input should be a 2D array")
+        if take_norms:
+            norms = np.linalg.norm(vs, axis=1, keepdims=True)
+            vs = vs / np.maximum(norms, 1e-30)
+        self._pending.append(vs)
+
+    # --- build -------------------------------------------------------------
+    def build(self) -> None:
+        c = self.cfg
+        if c.index_filename and c.read_index:
+            # read if the file exists, else build and write (reference
+            # constructor, src/antitopo_engine.h:137-155)
+            if index_exists(c.index_filename):
+                c.write_index = False
+            else:
+                c.read_index = False
+        if c.read_index and c.index_filename:
+            self.graph, meta = load_index(c.index_filename, self.device)
+            self._pending = []
+            self.n = self.graph.n
+            self.dim = int(meta.get("dim", self.graph.vectors.shape[1]))
+        else:
+            if self.graph is not None and self._pending:
+                raise NotImplementedError(
+                    "store -> build -> store -> build needs the wave builder, not ported yet: ROADMAP.md queue 1"
+                )
+            if not self._pending:
+                raise RuntimeError("no vectors stored")
+            x = _concat_pending(self._pending)
+            self._pending = []
+            self.n, self.dim = x.shape
+            self.graph = build_index(x, self._build_config(), self.device)
+            if c.write_index and c.index_filename:
+                save_index(c.index_filename, self.graph, {"dim": self.dim})
+        # reset stats before queries (src/antitopo_engine.h:488-492)
+        self.num_distcomps = 0
+        self.num_distcomps_compressed = 0
+
+    def _build_config(self) -> BuildConfig:
+        c = self.cfg
+        return BuildConfig(
+            M=c.M,
+            M0=c.M0,
+            ef_construction=c.ef_construction,
+            ortho_count=c.ortho_count,
+            ortho_factor=c.ortho_factor,
+            ortho_bias=c.ortho_bias,
+            prune_overflow=c.prune_overflow,
+            prune_cand=c.prune_cand,
+            seed=c.seed,
+            builder=c.builder,
+        )
+
+    # --- query -------------------------------------------------------------
+    def set_ef_search(self, ef_search: int) -> None:
+        self.cfg.ef_search = int(ef_search)
+        self.num_distcomps = 0
+        self.num_distcomps_compressed = 0
+        self.total_query_time_ns = 0.0
+
+    def _ef(self, k: int) -> int:
+        if self.cfg.ef_search is not None:
+            return max(int(self.cfg.ef_search), k)
+        return max(k * self.cfg.ef_search_mult, k)
+
+    def _resolve_packed(self) -> None:
+        """Materialize the bf16 packed layout and the entry-member list on
+        first use."""
+        g = self.graph
+        if g.packed is None:
+            g.packed, g.packed_norms, g.packed_ids = build_packed(g.vectors, g.norms, g.adj_bottom)
+        if self.cfg.entry_seeds > 0 and g.entry_members is None and g.layers:
+            # largest upper layer within the dense-scan budget (layers are
+            # ordered bottom-up, so sizes decrease)
+            pick = next((L for L in g.layers if L.adj.shape[0] - 1 <= ENTRY_SCAN_MAX), None)
+            if pick is not None:
+                n_l = pick.adj.shape[0] - 1
+                mem = torch.nonzero(pick.slot[:-1] != n_l).flatten().to(torch.int32)
+                pad = (-mem.numel()) % 128
+                g.entry_members_n = int(mem.numel())
+                g.entry_members = torch.cat(
+                    [mem, torch.full((pad,), g.sentinel, dtype=torch.int32, device=mem.device)]
+                )
+
+    def query_k_batch(self, queries: np.ndarray, k: int) -> np.ndarray:
+        if self.graph is None:
+            raise RuntimeError("build() must be called before queries")
+        self._resolve_packed()
+        t_begin = time.perf_counter_ns()
+        q = np.asarray(queries, dtype=np.float32)
+        if q.ndim != 2:
+            raise ValueError("queries must be 2D")
+        q = pad_dim(q, self.graph.vectors.shape[1])
+        ef = self._ef(k)
+        bs = self.cfg.query_block
+        res = []
+        ncomp_total = 0
+        for start in range(0, q.shape[0], bs):
+            # queries travel as bf16 (2 B/dim) and are used as f32 on the
+            # device for descent, traversal and rerank alike
+            chunk = torch.from_numpy(q[start : start + bs]).to(torch.bfloat16)
+            ids, _, ncomp = fused_query_batch(
+                self.graph,
+                chunk.to(self.device).float(),
+                ef=ef,
+                k=k,
+                ef_cap=ef + ((-ef) % 128),
+                expand=self.cfg.query_expand,
+                cand=self.cfg.fused_cand,
+                seeds=self.cfg.entry_seeds,
+            )
+            res.append(ids)
+            ncomp_total += ncomp.sum()
+        self.num_distcomps += int(ncomp_total)
+        out = torch.cat(res).cpu().numpy()
+        self.total_query_time_ns += time.perf_counter_ns() - t_begin
+        return out
+
+    def query_k(self, v: np.ndarray, k: int) -> List[int]:
+        ids = self.query_k_batch(np.asarray(v, np.float32)[None, :], k)[0]
+        return [int(i) for i in ids if i < self.n][:k]
+
+    # reference pybind alias (src/pyrunner.cpp:84-90)
+    def query_k_numpy(self, v: np.ndarray, k: int) -> List[int]:
+        return self.query_k(v, k)

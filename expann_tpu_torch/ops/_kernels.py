@@ -1,0 +1,115 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+At first use, ``nvcc`` compiles every source of ``csrc/`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, under
+``build/kernels/`` at the repository root, named by a hash of the sources
+and flags; later calls (and later processes) reuse it.  The library is
+bound with ``ctypes``: device pointers from ``Tensor.data_ptr()``, PyTorch's
+current stream, and a ``cudaGetLastError()`` code returned by every launch.
+
+``launches`` counts kernel launches per wrapper; each wrapper adds one
+where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("flat_topk.cu", "fused_search.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+launches: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "expann_flat_topk_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "expann_fused_search_bf16": [_P] * 10 + [_I] * 10 + [_P],
+    "expann_flat_topk_smem_bytes": [_I, _I],
+    "expann_fused_search_smem_bytes": [_I] * 5,
+}
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        digest.update((CSRC / name).read_bytes())
+    so = BUILD_DIR / f"libexpann_kernels_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # build into a temporary name, then rename: concurrent builders
+        # never load a half-written library
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        so.with_suffix(".log").write_text(proc.stderr)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in _SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.expann_error_string.argtypes = [ctypes.c_int]
+    lib.expann_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_report() -> str:
+    """The ptxas report (registers, shared memory, spills per kernel) of
+    the library ``library()`` loaded."""
+    lib = library()
+    return Path(lib._name).with_suffix(".log").read_text()
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if code != 0:
+        msg = library().expann_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device) -> None:
+    """Validate a kernel operand: device, dtype, contiguity, 16-byte alignment."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16 != 0:
+        raise ValueError(f"{name} must be 16-byte aligned")

@@ -1,0 +1,95 @@
+"""Flat exact k-NN over a bf16 corpus (counterpart of
+expann_tpu/ops/pallas_topk.py ``flat_topk``).
+
+``flat_topk`` returns, for every query, the k nearest corpus rows by
+(distance, id): distances are ``(|q|^2 + |x|^2) - 2 q.x`` clamped at 0,
+with the query rounded to the corpus dtype and all sums in f32.  On a CUDA
+tensor it launches the hand-written kernel ``csrc/flat_topk.cu``; on a CPU
+tensor it runs ``flat_topk_plain``, the same function in plain PyTorch.
+
+The selection is exact: the TPU kernel's 128-lane pooling and packed keys
+are not reproduced, so both versions agree with the exact oracle
+(``BruteForceEngine(mode="exact")``) on the rounded corpus.  Slots beyond
+the corpus size (k > n) hold id -1 and distance +inf.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from expann_tpu_torch.ops import _kernels
+
+K_MAX = 128  # the kernel keeps up to 128 list slots per query
+
+
+def flat_topk_prepare(x: np.ndarray, device, dtype=torch.bfloat16) -> Tuple[torch.Tensor, int]:
+    """Upload a host corpus ``(n, D)`` for flat_topk: returns ``(x_dev, n)``.
+    No row padding is needed: the kernel masks the ragged last tile."""
+    x = np.asarray(x, np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=dtype).contiguous(), x.shape[0]
+
+
+def flat_topk_plain(
+    q: torch.Tensor, x: torch.Tensor, k: int, chunk: int = 1024
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: the same distances, an exact
+    (d, id)-ordered selection by stable sort.  Returns ``(ids, d)``
+    ``(B, k)`` int32 / f32."""
+    B = q.shape[0]
+    n = x.shape[0]
+    xf = x.float()
+    xn = torch.sum(xf * xf, dim=1)
+    ids_out, d_out = [], []
+    for s in range(0, B, chunk):
+        qc = q[s : s + chunk].to(x.dtype).float()
+        qn = torch.sum(qc * qc, dim=1)
+        d2 = torch.clamp_min((qn[:, None] + xn[None, :]) - 2.0 * (qc @ xf.T), 0.0)
+        d_s, idx = torch.sort(d2, dim=1, stable=True)
+        ids_out.append(idx[:, :k].to(torch.int32))
+        d_out.append(d_s[:, :k])
+    ids = torch.cat(ids_out) if ids_out else torch.empty((0, min(k, n)), dtype=torch.int32)
+    d = torch.cat(d_out) if d_out else torch.empty((0, min(k, n)))
+    if k > n:
+        ids = torch.cat([ids, torch.full((B, k - n), -1, dtype=torch.int32, device=ids.device)], 1)
+        d = torch.cat([d, torch.full((B, k - n), float("inf"), device=d.device)], 1)
+    return ids, d
+
+
+def flat_topk_cuda(q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the flat top-k kernel (``csrc/flat_topk.cu``) on CUDA tensors."""
+    device = x.device
+    q = q.to(torch.bfloat16).contiguous()
+    _kernels.require_cuda(x, "x", torch.bfloat16, device)
+    _kernels.require_cuda(q, "q", torch.bfloat16, device)
+    B, D = q.shape
+    n, Dx = x.shape
+    if D != Dx or D % 64 != 0:
+        raise ValueError(f"query dim {D} / corpus dim {Dx}: both equal and a multiple of 64")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"k={k} outside 1..{K_MAX}")
+    ids = torch.empty((B, k), dtype=torch.int32, device=device)
+    d = torch.empty((B, k), dtype=torch.float32, device=device)
+    if B == 0:
+        return ids, d
+    lib = _kernels.library()
+    code = lib.expann_flat_topk_bf16(
+        q.data_ptr(), x.data_ptr(), n, B, D, k, ids.data_ptr(), d.data_ptr(),
+        _kernels.stream_ptr(device),
+    )
+    _kernels.check(code, "flat_topk")
+    _kernels.launches["flat_topk"] += 1
+    return ids, d
+
+
+def flat_topk(q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest rows of ``x`` (n, D) for each query ``q`` (B, D):
+    ``(ids, d)`` of shape (B, k), ascending by (d, id).  The kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if x.is_cuda:
+        return flat_topk_cuda(q, x, k)
+    if x.device.type != "cpu":
+        raise ValueError(f"flat_topk runs on CUDA or CPU tensors, not {x.device}")
+    return flat_topk_plain(q, x, k)
