@@ -1,22 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch / CUDA port's paths once on one NVIDIA GPU.
 
 Phases, one line each:
-  1. device     the card, as torch and nvidia-smi name it;
-  2. build      nvcc builds the kernels of expann_tpu_torch/csrc for sm_90a
-                (registers and spills from ptxas, shared memory per launch);
-  3. flat_topk  the flat top-k kernel against its plain version, random bf16
-                corpus n=56000, d=128, 4096 queries, k=10;
-  4. canonical  config_synthetic.json (n=56000, d=128, 400 queries, k=10):
-                the flat engine (mode="fused") and the graph engine with
-                bench.py's graph config, built on the card and served at
-                ef 40 / 100 / 120, recall@10 against the exact oracle;
-  5. fused      the traversal kernel against its plain version on that graph
-                at ef=120, from the same seeded beams;
-  6. launches   kernel launches counted during phase 4 (both must be > 0);
-  7. times      graph and flat QPS on 65536 fresh queries (host clock around
-                finished calls) and kernel vs plain times (CUDA events) at
-                the main path's shapes.
+  1. device        the card, as torch and nvidia-smi name it;
+  2. build         nvcc builds the kernels of expann_tpu_torch/csrc for sm_90a
+                   (registers and spills from ptxas, shared memory per launch);
+  3. flat_topk     the count-mode flat top-k kernel (K2) against its plain
+                   version, random bf16 corpus n=56000, d=128, 4096 queries,
+                   k=10; flat_fixed: the fixed-pass kernel (K3) the same way
+                   at k=10 and k=100;
+  4. canonical     config_synthetic.json (n=56000, d=128, 400 queries, k=10):
+                   the flat engine (mode="fused") and the graph engine with
+                   bench.py's graph config, built on the card and served at
+                   ef 40 / 100 / 120 in 400-query calls (the fused route),
+                   recall@10 against the exact oracle; then the flat engine
+                   with topk_mode="fixed" (K3's path);
+  5. fused         the traversal kernel (K1) against its plain version on that
+                   graph at ef=120, from the same seeded beams;
+  6. packed_score  the block scorer (K4) against its plain version on that
+                   graph: the 400 queries, E=2 seeded selections of real nodes
+                   and sentinels, topt 0 and 8;
+  7. small_batch   the per-iteration route at ef=120: the 400 queries one per
+                   call (as query_k calls) and in 32-query calls, identical
+                   ids, recall@10;
+  8. launches      kernel launches counted on each path: the counts are set to
+                   0 just before a path and read just after;
+  9. times         graph and flat QPS on 65536 fresh queries, per-call latency
+                   at B = 1, 8, 32 on both graph routes (host clock, numpy in
+                   and out), and kernel / plain / library-chain times (CUDA
+                   events) at the paths' shapes, beside each kernel's bound.
 Then the kernel summary as JSON, the card's name and power limit as
 nvidia-smi prints them, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -41,18 +53,25 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 N, M_QUERIES, D, K = 56000, 400, 128, 10  # config_synthetic.json
-# bench.py's graph config, without its TPU-only knobs (packed_topt, fused_qt)
+# bench.py's graph config (bench.py:256-279)
 GRAPH_CFG = dict(
     M=60, ef_construction=500, ortho_count=1, prune_overflow=1, prune_cand=500,
     query_expand=2, fused_cand=8, query_block=16384, entry_seeds=8, precision="default",
+    packed_topt=8, fused_qt=128,
 )
 EFS = (40, 100, 120)
 QPS_QUERIES = 65536
 FLAT_B = 4096  # phase 3 batch
 FLAT_CHUNK = 16384  # queries per flat_topk call on the flat engine's path
+SMALL_CHUNK = 32  # queries per call in the small-batch phase
+LATENCY_B = (1, 8, 32)
+LATENCY_CALLS = 50
+K4_B = (1, 32, 16384)
 # |d_kernel - d_plain| allowed: both sum 128 f32 products of magnitude <= ~|q||x|
 # in another order; |d| ~ 256 here, so a few hundred ulps of 256 plus a margin
 D_ATOL, D_RTOL = 2e-3, 1e-5
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, bf16 tensor FLOP/s
+HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
 
 
 def phase(name: str, **vals) -> None:
@@ -82,13 +101,23 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, flops: float) -> tuple:
+    """The least time the card could take, in ms, and what sets it: the
+    bytes over HBM bandwidth or the operations over the bf16 tensor peak."""
+    tb, to = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+KERNEL_NAMES = ("flat_topk_fixed_kernel", "flat_topk_kernel", "fused_search_kernel", "packed_score_kernel")
+
+
 def ptxas_summary(report: str) -> dict:
     """Registers and spill bytes per kernel from the ptxas report."""
     out, current = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)' for '(\w+)'", line)
         if m:
-            current = next((k for k in ("flat_topk_kernel", "fused_search_kernel") if k in m.group(1)), None)
+            current = next((k for k in KERNEL_NAMES if re.search(rf"\d{k}", m.group(1))), None)
             if current:
                 out[current] = {"arch": m.group(2)}
         elif current and "registers" in line:
@@ -96,6 +125,45 @@ def ptxas_summary(report: str) -> dict:
         elif current and "spill stores" in line:
             out[current]["spill_bytes"] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
     return out
+
+
+def latency_ms(eng, queries: np.ndarray, B: int, calls: int) -> np.ndarray:
+    """Host-clock milliseconds of ``calls`` query_k_batch calls of B rows
+    (numpy in, numpy out: the device work is done when a call returns),
+    after 5 warm-up calls."""
+    out = []
+    for i in range(calls + 5):
+        s = (i * B) % (queries.shape[0] - B + 1)
+        t0 = time.perf_counter()
+        eng.query_k_batch(queries[s : s + B], K)
+        if i >= 5:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return np.asarray(out)
+
+
+def profile_call(torch, kernels, eng, queries: np.ndarray) -> dict:
+    """One warm query_k_batch call under torch.profiler: wall ms (with the
+    profiler's own cost), device busy ms (kernels and copies), kernels
+    launched, host syncs (``aten::_local_scalar_dense``: ``done.all()`` and
+    the descent's ``any()``) with their host ms, and the per-iteration
+    route's iterations (one K4 launch each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.query_k_batch(queries, K)
+    torch.cuda.synchronize()
+    k4 = kernels.launches["packed_score"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.query_k_batch(queries, K)
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    on_device = [e for e in events if str(e.device_type).endswith("CUDA")]
+    syncs = [e for e in events if e.name == "aten::_local_scalar_dense"]
+    busy = sum(e.time_range.elapsed_us() for e in on_device) / 1e3
+    return dict(wall_ms=f"{wall:.3f}", device_busy_ms=f"{busy:.3f}", idle_share=f"{1 - busy / wall:.3f}",
+                device_ops=len(on_device), host_syncs=len(syncs),
+                sync_ms=f"{sum(e.time_range.elapsed_us() for e in syncs) / 1e3:.3f}",
+                iterations=kernels.launches["packed_score"] - k4)
 
 
 def main() -> None:
@@ -109,7 +177,8 @@ def main() -> None:
     from expann_tpu_torch.models.search import entry_beam, rerank
     from expann_tpu_torch.ops import _kernels
     from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain, topt_for
-    from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_plain
+    from expann_tpu_torch.ops.packed import packed_score_cuda, packed_score_plain
+    from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_fixed_cuda, flat_topk_plain
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -126,44 +195,52 @@ def main() -> None:
     lib = _kernels.library()
     build_s = time.perf_counter() - t0
     ptx = ptxas_summary(_kernels.build_report())
-    check(set(ptx) == {"flat_topk_kernel", "fused_search_kernel"}, f"ptxas report lists {sorted(ptx)}")
+    check(set(ptx) == set(KERNEL_NAMES), f"ptxas report lists {sorted(ptx)}")
     check(all(v["arch"] == "sm_90a" for v in ptx.values()), f"not built for sm_90a: {ptx}")
     topt = topt_for(GRAPH_CFG["fused_cand"], GRAPH_CFG["query_expand"], 128)
     smem = {
         "flat_topk_kernel": lib.expann_flat_topk_smem_bytes(D, K),
+        "flat_topk_fixed_kernel": lib.expann_flat_topk_smem_bytes(D, K),
         "fused_search_kernel": lib.expann_fused_search_smem_bytes(D, 128, 128, GRAPH_CFG["query_expand"], topt),
+        "packed_score_kernel": lib.expann_packed_score_smem_bytes(D, 128),
     }
-    for kname, info in ptx.items():
+    for kname, info in sorted(ptx.items()):
         phase("build", kernel=kname, arch=info["arch"], registers=info["registers"],
-              spill_bytes=info["spill_bytes"], dynamic_smem_bytes=smem[kname])
+              spill_bytes=info.get("spill_bytes", 0), dynamic_smem_bytes=smem[kname])
     phase("build", seconds=f"{build_s:.3f}", source=os.path.join("expann_tpu_torch", "csrc"))
 
-    # ---- 3. flat_topk against its plain version ---------------------------
+    # ---- 3. flat_topk (K2) and flat_fixed (K3) against the plain version ---
     rng = np.random.default_rng(0)
     xr = torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32)).to(dev, torch.bfloat16)
     qr = torch.from_numpy(rng.standard_normal((FLAT_B, D)).astype(np.float32)).to(dev)
-    ids, dk = flat_topk_cuda(qr, xr, K)
-    pids, pd = flat_topk_plain(qr, xr, K)
-    torch.cuda.synchronize()
-    flat_err = float((dk - pd).abs().max())
-    check(bool(torch.isfinite(dk).all()), "flat_topk: non-finite distances")
-    check(bool(torch.allclose(dk, pd, rtol=D_RTOL, atol=D_ATOL)), f"flat_topk distances differ by {flat_err}")
-    # an id may differ from the plain one only where the two tie within tolerance
     qb, xb = qr.to(torch.bfloat16).float(), xr.float()
-    exact_of_kernel_ids = ((qb[:, None, :] - xb[ids.long()]) ** 2).sum(-1)
-    mism = ids != pids
-    tie_err = float((exact_of_kernel_ids - pd).abs()[mism].max()) if bool(mism.any()) else 0.0
-    check(tie_err <= 1e-2, f"flat_topk: a differing id is not a tie ({tie_err})")
-    phase("flat_topk", n=N, B=FLAT_B, k=K, max_abs_err=f"{flat_err:.3e}",
-          differing_ids=int(mism.sum()), worst_tie_gap=f"{tie_err:.3e}")
-    del xr, qr, qb, xb, exact_of_kernel_ids
+    flat_err = {}
+    for label, fn, ks in (("flat_topk", flat_topk_cuda, (K,)), ("flat_fixed", flat_topk_fixed_cuda, (K, 100))):
+        for k in ks:
+            ids, dk = fn(qr, xr, k)
+            pids, pd = flat_topk_plain(qr, xr, k)
+            torch.cuda.synchronize()
+            err = float((dk - pd).abs().max())
+            flat_err[label] = max(flat_err.get(label, 0.0), err)
+            check(bool(torch.isfinite(dk).all()), f"{label}: non-finite distances")
+            check(bool(torch.allclose(dk, pd, rtol=D_RTOL, atol=D_ATOL)), f"{label} k={k}: distances differ by {err}")
+            # an id may differ from the plain one only where the two tie within tolerance
+            exact_of_kernel_ids = ((qb[:, None, :] - xb[ids.long()]) ** 2).sum(-1)
+            mism = ids != pids
+            tie_err = float((exact_of_kernel_ids - pd).abs()[mism].max()) if bool(mism.any()) else 0.0
+            check(tie_err <= 1e-2, f"{label} k={k}: a differing id is not a tie ({tie_err})")
+            phase(label, n=N, B=FLAT_B, k=k, max_abs_err=f"{err:.3e}",
+                  differing_ids=int(mism.sum()), worst_tie_gap=f"{tie_err:.3e}")
+            del exact_of_kernel_ids
+    del xr, qr, qb, xb
 
-    # ---- 4. the canonical config: the main path ---------------------------
+    # ---- 4. the canonical config: the batched main path --------------------
     with tempfile.TemporaryDirectory() as cache:
         ds = load_synthetic_uniform_sphere_points(N, M_QUERIES, K, D, cache_dir=cache, device=dev)
     # the oracle itself, against float64 numpy on a slice
     d64 = ((ds.queries[:50, None, :].astype(np.float64) - ds.vecs[None].astype(np.float64)) ** 2).sum(-1)
     check(recall(ds.ground_truth[:50], np.argsort(d64, 1)[:, :K]) >= 0.999, "exact oracle disagrees with float64")
+    launches = {}
     _kernels.launches.clear()
 
     flat = BruteForceEngine(mode="fused", device=dev)
@@ -194,9 +271,20 @@ def main() -> None:
         graph_recall[ef] = recall(gids, ds.ground_truth)
         phase("canonical", engine="graph", ef=ef, recall_at_10=f"{graph_recall[ef]:.4f}",
               distcomps_per_query=f"{graph.num_distcomps / M_QUERIES:.1f}")
-    launches = dict(_kernels.launches)
+    launches["batched"] = dict(_kernels.launches)
     check(flat_recall >= 0.99, f"flat recall@10 {flat_recall} < 0.99")
     check(graph_recall[120] >= 0.95, f"graph recall@10 at ef=120 {graph_recall[120]} < 0.95")
+
+    _kernels.launches.clear()
+    flat_fixed = BruteForceEngine(mode="fused", topk_mode="fixed", device=dev)
+    flat_fixed.store_many_vectors(ds.vecs)
+    flat_fixed.build()
+    fixed_ids = flat_fixed.query_k_batch(ds.queries, K)
+    launches["flat_fixed"] = dict(_kernels.launches)
+    fixed_recall = recall(fixed_ids, ds.ground_truth)
+    phase("canonical", engine="flat", mode="fused", topk_mode="fixed", recall_at_10=f"{fixed_recall:.4f}",
+          ids_equal_count_mode=bool((fixed_ids == flat_ids).all()))
+    check(fixed_recall >= 0.99, f"flat (topk_mode=fixed) recall@10 {fixed_recall} < 0.99")
 
     # ---- 5. the traversal kernel against its plain version ----------------
     qg = torch.from_numpy(ds.queries).to(torch.bfloat16).to(dev).float()
@@ -223,12 +311,71 @@ def main() -> None:
     check(bool(torch.allclose(kd[same], pd_[same], rtol=D_RTOL, atol=D_ATOL)),
           f"fused_search: beam distances differ by {fused_err}")
 
-    # ---- 6. launches on the main path -------------------------------------
-    phase("launches", **launches)
-    check(launches.get("flat_topk", 0) > 0 and launches.get("fused_search", 0) > 0,
-          f"a kernel of the main path was never launched: {launches}")
+    # ---- 6. the block scorer against its plain version ---------------------
+    q400 = torch.from_numpy(ds.queries).to(dev)
+    rng = np.random.default_rng(2)
+    sel = torch.from_numpy(rng.integers(0, N, (M_QUERIES, 2)).astype(np.int32)).to(dev)
+    sel[::5, 1] = N  # sentinel selections, as done queries and exhausted beams give
+    sel[::17, 0] = N
+    full_d, full_i = packed_score_plain(*args, sel, q400, 0)
+    full_d, full_i = full_d.view(M_QUERIES, 2, -1), full_i.view(M_QUERIES, 2, -1)
+    ps_err = 0.0
+    for t in (0, GRAPH_CFG["packed_topt"]):
+        kd4, ki4 = packed_score_cuda(*args, sel, q400, t)
+        pd4, pi4 = packed_score_plain(*args, sel, q400, t)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(pd4)
+        check(bool(torch.equal(torch.isfinite(kd4), fin)), f"packed_score topt={t}: +inf slots differ")
+        err = float((kd4 - pd4).abs()[fin].max())
+        ps_err = max(ps_err, err)
+        check(bool(torch.allclose(kd4[fin], pd4[fin], rtol=D_RTOL, atol=D_ATOL)),
+              f"packed_score topt={t}: distances differ by {err}")
+        # an id may differ only on a tie: each kernel id's distance, looked
+        # up in its node's full row, is the distance the kernel reports
+        w = t or full_i.shape[2]
+        kd3, ki3 = kd4.view(M_QUERIES, 2, w), ki4.view(M_QUERIES, 2, w)
+        hit = (full_i[:, :, None, :] == ki3[:, :, :, None]) & torch.isfinite(kd3)[:, :, :, None]
+        looked_up = torch.where(hit, full_d[:, :, None, :], 0.0).sum(-1)
+        ok = torch.isfinite(kd3)
+        tie_gap = float((looked_up - kd3).abs()[ok].max())
+        check(tie_gap <= D_ATOL + D_RTOL * 512, f"packed_score topt={t}: a differing id is not a tie ({tie_gap})")
+        check(t != 0 or bool(torch.equal(ki4, pi4)), "packed_score topt=0: ids differ")
+        phase("packed_score", B=M_QUERIES, E=2, topt=t, sentinel_pairs=int((sel == N).sum()),
+              max_abs_err=f"{err:.3e}", differing_ids=int((ki4 != pi4).sum()), worst_tie_gap=f"{tie_gap:.3e}")
+    del full_d, full_i
 
-    # ---- 7. times ---------------------------------------------------------
+    # ---- 7. the per-iteration route: small batches -------------------------
+    graph.set_ef_search(120)
+    _kernels.launches.clear()
+    t0 = time.perf_counter()
+    single = np.concatenate([graph.query_k_batch(ds.queries[i : i + 1], K) for i in range(M_QUERIES)])
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunked = np.concatenate(
+        [graph.query_k_batch(ds.queries[s : s + SMALL_CHUNK], K) for s in range(0, M_QUERIES, SMALL_CHUNK)]
+    )
+    chunked_s = time.perf_counter() - t0
+    launches["small_batch"] = dict(_kernels.launches)
+    small_recall = recall(single, ds.ground_truth)
+    n_same = int((single == chunked).all(1).sum())
+    phase("small_batch", ef=120, recall_at_10=f"{small_recall:.4f}", rows_identical=f"{n_same}/{M_QUERIES}",
+          distcomps_per_query=f"{graph.num_distcomps / (2 * M_QUERIES):.1f}",
+          seconds_single=f"{single_s:.2f}", seconds_chunks_of_32=f"{chunked_s:.2f}")
+    check(n_same == M_QUERIES, f"small batches: ids differ between 1-query and 32-query calls on {M_QUERIES - n_same} rows")
+    check(all(len(set(r.tolist())) == K for r in single), "small batches: duplicate ids")
+    check(small_recall >= 0.95, f"small-batch recall@10 at ef=120 {small_recall} < 0.95")
+
+    # ---- 8. launches on each path -------------------------------------------
+    for path, counts in launches.items():
+        phase("launches", path=path, **counts)
+    check(launches["batched"].get("flat_topk", 0) > 0 and launches["batched"].get("fused_search", 0) > 0,
+          f"a kernel of the batched path was never launched: {launches['batched']}")
+    check(launches["batched"].get("packed_score", 0) == 0, "400-query calls took the per-iteration route")
+    check(launches["flat_fixed"].get("flat_topk_fixed", 0) > 0, f"K3 never launched: {launches['flat_fixed']}")
+    check(launches["small_batch"].get("packed_score", 0) > 0 and launches["small_batch"].get("fused_search", 0) == 0,
+          f"small batches did not take the per-iteration route: {launches['small_batch']}")
+
+    # ---- 9. times ---------------------------------------------------------
     rng = np.random.default_rng(1)
     qps = {}
     for label, eng, ef_q in (("graph_ef100", graph, 100), ("graph_ef120", graph, 120), ("flat", flat, None)):
@@ -245,12 +392,38 @@ def main() -> None:
         qps[label] = runs
         phase("times", path=label, queries=QPS_QUERIES, qps=",".join(f"{v:.0f}" for v in runs), card=card)
 
+    graph.set_ef_search(120)
+    for route, use_fused in (("per_iteration", "auto"), ("fused", True)):
+        graph.cfg.use_fused = use_fused
+        for B in LATENCY_B:
+            ms = latency_ms(graph, ds.queries, B, LATENCY_CALLS)
+            phase("times", latency=route, B=B, ef=120, calls=LATENCY_CALLS, median_ms=f"{np.median(ms):.3f}",
+                  p90_ms=f"{np.percentile(ms, 90):.3f}", min_ms=f"{ms.min():.3f}", card=card)
+        for B in (1, SMALL_CHUNK):
+            phase("times", profile=route, B=B, ef=120, **profile_call(torch, _kernels, graph, ds.queries[:B]),
+                  card=card)
+    graph.cfg.use_fused = "auto"
+
+    times = {}
     qf = torch.from_numpy(rng.standard_normal((FLAT_CHUNK, D)).astype(np.float32)).to(dev, torch.bfloat16)
-    flat_ms = cuda_ms(torch, lambda: flat_topk_cuda(qf, flat._x_fused, K), reps=5)
-    flat_plain_ms = cuda_ms(torch, lambda: flat_topk_plain(qf, flat._x_fused, K), reps=2)
-    flat_tflops = 2.0 * FLAT_CHUNK * N * D / (flat_ms * 1e-3) / 1e12
-    phase("times", kernel="flat_topk", B=FLAT_CHUNK, n=N, k=K, ms=f"{flat_ms:.3f}",
-          plain_ms=f"{flat_plain_ms:.3f}", achieved_tflops=f"{flat_tflops:.1f}", card=card)
+    xf = flat._x_fused
+    xn = (xf.float() ** 2).sum(1)
+
+    def flat_chain():  # one bf16 product with f32 results, then top-k
+        return torch.topk(xn - 2.0 * torch.mm(qf, xf.T, out_dtype=torch.float32), K, dim=1, largest=False)
+
+    flat_lib_ms = cuda_ms(torch, flat_chain, reps=5)
+    flat_plain_ms = cuda_ms(torch, lambda: flat_topk_plain(qf, xf, K), reps=2)
+    flat_bound = bound(N * D * 2 + FLAT_CHUNK * D * 2 + FLAT_CHUNK * K * 8, 2.0 * FLAT_CHUNK * N * D)
+    for name, fn in (("flat_topk", flat_topk_cuda), ("flat_topk_fixed", flat_topk_fixed_cuda)):
+        ms = cuda_ms(torch, lambda: fn(qf, xf, K), reps=5)
+        times[name] = dict(ms=ms, plain_ms=flat_plain_ms, library_ms=flat_lib_ms,
+                           bound_ms=flat_bound[0], bound_by=flat_bound[1])
+        phase("times", kernel=name, B=FLAT_CHUNK, n=N, k=K, ms=f"{ms:.3f}", plain_ms=f"{flat_plain_ms:.3f}",
+              library_ms=f"{flat_lib_ms:.3f}", bound_ms=f"{flat_bound[0]:.4f}",
+              bound_by=flat_bound[1], achieved_tflops=f"{2.0 * FLAT_CHUNK * N * D / (ms * 1e-3) / 1e12:.1f}",
+              card=card)
+
     qt = torch.from_numpy(rng.standard_normal((GRAPH_CFG["query_block"], D)).astype(np.float32))
     qt = qt.to(torch.bfloat16).to(dev).float()
     bd0, bi0, _ = entry_beam(g, qt, EF, GRAPH_CFG["entry_seeds"])
@@ -258,29 +431,59 @@ def main() -> None:
     fused_ms = cuda_ms(torch, lambda: fused_search_cuda(*fargs), reps=5)
     fused_plain_ms = cuda_ms(torch, lambda: fused_search_plain(*fargs), reps=1)
     # bytes the traversal must read: per expansion one RS x D bf16 block plus
-    # RS norms and RS ids (ncomp counts RS per expansion)
+    # RS norms and RS ids (ncomp counts RS per expansion); queries and beams in and out
     rs = g.packed.shape[1]
+    Bq = GRAPH_CFG["query_block"]
     expansions = int(fused_search_cuda(*fargs)[2].sum()) / rs
-    fused_tbps = expansions * rs * (2 * D + 8) / (fused_ms * 1e-3) / 1e12
-    phase("times", kernel="fused_search", B=GRAPH_CFG["query_block"], ef=ef, EF=EF, ms=f"{fused_ms:.3f}",
-          plain_ms=f"{fused_plain_ms:.3f}", expansions_per_query=f"{expansions / GRAPH_CFG['query_block']:.1f}",
-          achieved_tb_per_s=f"{fused_tbps:.2f}", card=card)
+    fused_bound = bound(expansions * rs * (2 * D + 8) + Bq * (D * 4 + 4 * EF * 4 + 8), expansions * rs * D * 2.0)
+    times["fused_search"] = dict(ms=fused_ms, plain_ms=fused_plain_ms, library_ms=None,
+                                 bound_ms=fused_bound[0], bound_by=fused_bound[1])
+    phase("times", kernel="fused_search", B=Bq, ef=ef, EF=EF, ms=f"{fused_ms:.3f}",
+          plain_ms=f"{fused_plain_ms:.3f}", bound_ms=f"{fused_bound[0]:.3f}", bound_by=fused_bound[1],
+          expansions_per_query=f"{expansions / Bq:.1f}",
+          achieved_tb_per_s=f"{expansions * rs * (2 * D + 8) / (fused_ms * 1e-3) / 1e12:.2f}", card=card)
+    del bd0, bi0, fargs
 
+    t4 = GRAPH_CFG["packed_topt"]
+    rt = g.packed_norms.shape[1]
+    for B in K4_B:
+        qs = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
+        sel = torch.from_numpy(rng.integers(0, N, (B, 2)).astype(np.int32)).to(dev)
+        reps = 20 if B < 1024 else 5
+
+        def k4_chain():
+            s = sel.long()
+            blk = g.packed[s].view(B * 2, rs, D)
+            qq = qs.to(torch.bfloat16)[:, None, :].expand(B, 2, D).reshape(B * 2, D, 1)
+            dots = torch.bmm(blk, qq, out_dtype=torch.float32)[:, :, 0].view(B, 2, rs)
+            return torch.topk(g.packed_norms[s][:, :, :rs] - 2.0 * dots, t4, dim=2, largest=False)
+
+        ms = cuda_ms(torch, lambda: packed_score_cuda(*args, sel, qs, t4), reps=reps)
+        plain_ms = cuda_ms(torch, lambda: packed_score_plain(*args, sel, qs, t4), reps=max(2, reps // 4))
+        lib_ms = cuda_ms(torch, k4_chain, reps=reps)
+        pairs = 2 * B
+        k4_bound = bound(pairs * (rs * D * 2 + rt * 8 + 4 + t4 * 8) + B * D * 4, pairs * rs * D * 2.0)
+        if B == SMALL_CHUNK:
+            times["packed_score"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                         bound_ms=k4_bound[0], bound_by=k4_bound[1])
+        phase("times", kernel="packed_score", B=B, E=2, topt=t4, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              library_ms=f"{lib_ms:.4f}", bound_ms=f"{k4_bound[0]:.5f}", bound_by=k4_bound[1],
+              achieved_tb_per_s=f"{pairs * rs * D * 2 / (ms * 1e-3) / 1e12:.3f}", card=card)
+
+    rows = [
+        ("fused_search", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:69",
+         launches["batched"]["fused_search"], fused_err),
+        ("flat_topk", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:147",
+         launches["batched"]["flat_topk"], flat_err["flat_topk"]),
+        ("flat_topk_fixed", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:39",
+         launches["flat_fixed"]["flat_topk_fixed"], flat_err["flat_fixed"]),
+        ("packed_score", "expann_tpu_torch/csrc/packed_score.cu", "expann_tpu/ops/pallas_beam.py:67",
+         launches["small_batch"]["packed_score"], ps_err),
+    ]
     kernels = [
-        {
-            "name": "fused_search", "route": "cuda",
-            "source": "expann_tpu_torch/csrc/fused_search.cu",
-            "replaces": "expann_tpu/ops/pallas_fused.py:69",
-            "launches": launches["fused_search"], "max_abs_err": fused_err,
-            "ms": fused_ms, "plain_ms": fused_plain_ms,
-        },
-        {
-            "name": "flat_topk", "route": "cuda",
-            "source": "expann_tpu_torch/csrc/flat_topk.cu",
-            "replaces": "expann_tpu/ops/pallas_topk.py:147",
-            "launches": launches["flat_topk"], "max_abs_err": flat_err,
-            "ms": flat_ms, "plain_ms": flat_plain_ms,
-        },
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n_launch,
+         "max_abs_err": err, **times[name]}
+        for name, src, rep, n_launch, err in rows
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

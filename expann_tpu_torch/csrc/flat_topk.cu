@@ -1,7 +1,10 @@
 // Flat exact k-NN over a bf16 corpus: streamed distances + running top-k.
 //
-// Replaces expann_tpu/ops/pallas_topk.py:_topk_merge_kernel_count (the
-// `flat_topk(mode="count")` Pallas kernel, launcher :286, call :325).
+// Two kernels share the tile code.  `flat_topk_kernel` (K2) replaces
+// expann_tpu/ops/pallas_topk.py:_topk_merge_kernel_count (the
+// `flat_topk(mode="count")` Pallas kernel, launcher :286, call :325);
+// `flat_topk_fixed_kernel` (K3) replaces :_topk_merge_kernel (:39, the
+// `mode="fixed"` branch of the same call).  Both compute the same function.
 //
 // What it computes: for every query q (bf16-rounded) the k nearest corpus
 // rows by squared L2, d = (|q|^2 + |x|^2) - 2 q.x clamped at 0, with all
@@ -23,13 +26,19 @@
 // feature chunks, transposed, so that every thread computes a 4x4 register
 // micro-tile (4 queries x 4 rows) from two 16-byte shared loads per
 // feature.  The 64x64 tile distances go to shared memory; then each warp
-// merges 8 queries: a ballot finds the candidates below the query's
-// current k-th (d, id), and only those are inserted, warp-cooperatively,
-// into a sorted running list in shared memory — the count-then-insert
-// idea of the TPU kernel, exact.  Late tiles rarely insert anything.
+// merges 8 queries into a sorted running list in shared memory.  K2: a
+// ballot finds the candidates below the query's current k-th (d, id), and
+// only those are inserted, warp-cooperatively — the count-then-insert idea
+// of the TPU kernel, exact; late tiles rarely insert anything.  K3: exactly
+// k passes per tile, each a warp argmin by (d, id), an insertion if it
+// beats the list's last entry, and the winner knocked out — the TPU fixed
+// kernel's k extract+insert passes, exact (its (d, id) tie-break, :132-134).
+// K3 pays k passes on every tile whatever the data, so it is the slower of
+// the two; it exists to keep the TPU package's `topk_mode="fixed"`.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -85,6 +94,130 @@ __device__ void warp_insert(float* Ld, int* Li, int k, float vd, int vi, int lan
   __syncwarp();
 }
 
+// The block's shared-memory layout.
+struct Tile {
+  float* qs;  // [D][QB] query tile, transposed
+  float* xs;  // [DK][CT] corpus chunk, transposed
+  float* ds;  // [QB][CT] tile distances
+  float* qn;  // [QB]
+  float* xn;  // [CT]
+  float* ld;  // [QB][k] running top-k, ascending
+  int* li;
+};
+
+__device__ __forceinline__ Tile tile_layout(float* base, int D, int k) {
+  Tile s;
+  s.qs = base;
+  s.xs = s.qs + D * QB;
+  s.ds = s.xs + DK * CT;
+  s.qn = s.ds + QB * CT;
+  s.xn = s.qn + QB;
+  s.ld = s.xn + CT;
+  s.li = reinterpret_cast<int*>(s.ld + QB * k);
+  return s;
+}
+
+// Stage the block's QB queries (bf16 -> f32, transposed), their squared
+// norms, and empty running lists.
+__device__ void load_queries(const Tile& s, const __nv_bfloat16* __restrict__ q, int q0, int B,
+                             int D, int k, int tid) {
+  for (int i = tid; i < QB * D; i += THREADS) {
+    const int qi = i / D, c = i - qi * D;
+    s.qs[c * QB + qi] = (q0 + qi < B) ? __bfloat162float(q[(size_t)(q0 + qi) * D + c]) : 0.f;
+  }
+  for (int i = tid; i < QB * k; i += THREADS) {
+    s.ld[i] = INFINITY;
+    s.li[i] = -1;
+  }
+  __syncthreads();
+  if (tid < QB) {
+    float acc = 0.f;
+    for (int c = 0; c < D; ++c) {
+      const float v = s.qs[c * QB + tid];
+      acc = fmaf(v, v, acc);
+    }
+    s.qn[tid] = acc;
+  }
+}
+
+// Distances of the QB queries to corpus rows r0 .. r0+CT into s.ds, clamped
+// at 0, rows >= n at +inf.  Ends with a barrier: s.ds is complete.
+__device__ void tile_distances(const Tile& s, const __nv_bfloat16* __restrict__ x, int n,
+                               int D, int r0, int tid) {
+  const int tx = tid & 15, ty = tid >> 4;  // rows 4tx.., queries 4ty..
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float xnorm = 0.f;
+
+  for (int c0 = 0; c0 < D; c0 += DK) {
+    __syncthreads();  // the previous chunk (and tile merge) is consumed
+    // stage rows r0..r0+CT, features c0..c0+DK: 16-byte loads, one row
+    // per thread, conflict-free transposed stores
+    for (int i = tid; i < CT * (DK / 8); i += THREADS) {
+      const int row = i % CT, c8 = (i / CT) * 8;
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + row < n)
+        raw = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(r0 + row) * D + c0 + c8));
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h2[j]);
+        s.xs[(c8 + 2 * j) * CT + row] = f.x;
+        s.xs[(c8 + 2 * j + 1) * CT + row] = f.y;
+      }
+    }
+    __syncthreads();
+    if (tid < CT) {
+      for (int c = 0; c < DK; ++c) {
+        const float v = s.xs[c * CT + tid];
+        xnorm = fmaf(v, v, xnorm);
+      }
+    }
+#pragma unroll 8
+    for (int c = 0; c < DK; ++c) {
+      const float4 a = *reinterpret_cast<const float4*>(&s.qs[(c0 + c) * QB + 4 * ty]);
+      const float4 b = *reinterpret_cast<const float4*>(&s.xs[c * CT + 4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  if (tid < CT) s.xn[tid] = xnorm;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = 4 * ty + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = 4 * tx + j;
+      float d = fmaxf((s.qn[qi] + s.xn[row]) - 2.f * acc[i][j], 0.f);
+      if (r0 + row >= n) d = INFINITY;
+      s.ds[qi * CT + row] = d;
+    }
+  }
+  __syncthreads();
+}
+
+__device__ void store_lists(const Tile& s, int q0, int B, int k, int tid,
+                            int* __restrict__ out_ids, float* __restrict__ out_d) {
+  __syncthreads();
+  for (int i = tid; i < QB * k; i += THREADS) {
+    const int qi = i / k;
+    if (q0 + qi < B) {
+      out_ids[(size_t)q0 * k + i] = s.li[i];
+      out_d[(size_t)q0 * k + i] = s.ld[i];
+    }
+  }
+}
+
+// Count mode (K2): a ballot finds the tile's candidates below the query's
+// current k-th (d, id); only those are inserted.
 __global__ void __launch_bounds__(THREADS)
 flat_topk_kernel(const __nv_bfloat16* __restrict__ q,  // (B, D)
                  const __nv_bfloat16* __restrict__ x,  // (n, D)
@@ -92,102 +225,21 @@ flat_topk_kernel(const __nv_bfloat16* __restrict__ q,  // (B, D)
                  int* __restrict__ out_ids,    // (B, k)
                  float* __restrict__ out_d) {  // (B, k)
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [D][QB] query tile, transposed
-  float* xs = qs + D * QB;                      // [DK][CT] corpus chunk, transposed
-  float* ds = xs + DK * CT;                     // [QB][CT] tile distances
-  float* qn = ds + QB * CT;                     // [QB]
-  float* xn = qn + QB;                          // [CT]
-  float* ld = xn + CT;                          // [QB][k] running top-k, ascending
-  int* li = reinterpret_cast<int*>(ld + QB * k);
-
+  const Tile s = tile_layout(reinterpret_cast<float*>(smem4), D, k);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int tx = tid & 15, ty = tid >> 4;  // rows 4tx.., queries 4ty..
   const int q0 = blockIdx.x * QB;
-
-  for (int i = tid; i < QB * D; i += THREADS) {
-    const int qi = i / D, c = i - qi * D;
-    qs[c * QB + qi] = (q0 + qi < B) ? __bfloat162float(q[(size_t)(q0 + qi) * D + c]) : 0.f;
-  }
-  for (int i = tid; i < QB * k; i += THREADS) {
-    ld[i] = INFINITY;
-    li[i] = -1;
-  }
-  __syncthreads();
-  if (tid < QB) {
-    float s = 0.f;
-    for (int c = 0; c < D; ++c) {
-      const float v = qs[c * QB + tid];
-      s = fmaf(v, v, s);
-    }
-    qn[tid] = s;
-  }
+  load_queries(s, q, q0, B, D, k, tid);
 
   for (int r0 = 0; r0 < n; r0 += CT) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    float xnorm = 0.f;
-
-    for (int c0 = 0; c0 < D; c0 += DK) {
-      __syncthreads();  // the previous chunk (and tile merge) is consumed
-      // stage rows r0..r0+CT, features c0..c0+DK: 16-byte loads, one row
-      // per thread, conflict-free transposed stores
-      for (int i = tid; i < CT * (DK / 8); i += THREADS) {
-        const int row = i % CT, c8 = (i / CT) * 8;
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (r0 + row < n)
-          raw = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(r0 + row) * D + c0 + c8));
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(h2[j]);
-          xs[(c8 + 2 * j) * CT + row] = f.x;
-          xs[(c8 + 2 * j + 1) * CT + row] = f.y;
-        }
-      }
-      __syncthreads();
-      if (tid < CT) {
-        for (int c = 0; c < DK; ++c) {
-          const float v = xs[c * CT + tid];
-          xnorm = fmaf(v, v, xnorm);
-        }
-      }
-#pragma unroll 8
-      for (int c = 0; c < DK; ++c) {
-        const float4 a = *reinterpret_cast<const float4*>(&qs[(c0 + c) * QB + 4 * ty]);
-        const float4 b = *reinterpret_cast<const float4*>(&xs[c * CT + 4 * tx]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    if (tid < CT) xn[tid] = xnorm;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = 4 * tx + j;
-        float d = fmaxf((qn[qi] + xn[row]) - 2.f * acc[i][j], 0.f);
-        if (r0 + row >= n) d = INFINITY;
-        ds[qi * CT + row] = d;
-      }
-    }
-    __syncthreads();
+    tile_distances(s, x, n, D, r0, tid);
     for (int qi = warp; qi < QB; qi += THREADS / 32) {
-      float* Ld = ld + qi * k;
-      int* Li = li + qi * k;
+      float* Ld = s.ld + qi * k;
+      int* Li = s.li + qi * k;
 #pragma unroll
       for (int j = 0; j < CT / 32; ++j) {
         const int row = lane + 32 * j;
-        const float cd = ds[qi * CT + row];
+        const float cd = s.ds[qi * CT + row];
         const int ci = r0 + row;
         const bool cand = r0 + row < n && pair_less(cd, ci, Ld[k - 1], Li[k - 1]);
         unsigned mask = __ballot_sync(FULL, cand);
@@ -201,39 +253,109 @@ flat_topk_kernel(const __nv_bfloat16* __restrict__ q,  // (B, D)
       }
     }
   }
-  __syncthreads();
-  for (int i = tid; i < QB * k; i += THREADS) {
-    const int qi = i / k;
-    if (q0 + qi < B) {
-      out_ids[(size_t)q0 * k + i] = li[i];
-      out_d[(size_t)q0 * k + i] = ld[i];
+  store_lists(s, q0, B, k, tid, out_ids, out_d);
+}
+
+// Fixed mode (K3): per tile and per query exactly k passes, each a warp
+// argmin by (d, id) over the tile's CT candidates, an insertion when it
+// beats the list's last entry, and the winner knocked out.  No pre-count.
+__global__ void __launch_bounds__(THREADS)
+flat_topk_fixed_kernel(const __nv_bfloat16* __restrict__ q,  // (B, D)
+                       const __nv_bfloat16* __restrict__ x,  // (n, D)
+                       int n, int B, int D, int k,
+                       int* __restrict__ out_ids,    // (B, k)
+                       float* __restrict__ out_d) {  // (B, k)
+  extern __shared__ float4 smem4[];
+  const Tile s = tile_layout(reinterpret_cast<float*>(smem4), D, k);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * QB;
+  load_queries(s, q, q0, B, D, k, tid);
+
+  for (int r0 = 0; r0 < n; r0 += CT) {
+    tile_distances(s, x, n, D, r0, tid);
+    for (int qi = warp; qi < QB; qi += THREADS / 32) {
+      float* Ld = s.ld + qi * k;
+      int* Li = s.li + qi * k;
+      float cd[CT / 32];
+      int ci[CT / 32];
+#pragma unroll
+      for (int j = 0; j < CT / 32; ++j) {
+        const int row = lane + 32 * j;
+        const bool valid = r0 + row < n;
+        cd[j] = valid ? s.ds[qi * CT + row] : INFINITY;
+        ci[j] = valid ? r0 + row : INT_MAX;
+      }
+      for (int p = 0; p < k; ++p) {
+        float vd = cd[0];
+        int vi = ci[0];
+#pragma unroll
+        for (int j = 1; j < CT / 32; ++j)
+          if (pair_less(cd[j], ci[j], vd, vi)) {
+            vd = cd[j];
+            vi = ci[j];
+          }
+#pragma unroll
+        for (int off = 16; off; off >>= 1) {
+          const float od = __shfl_xor_sync(FULL, vd, off);
+          const int oi = __shfl_xor_sync(FULL, vi, off);
+          if (pair_less(od, oi, vd, vi)) {
+            vd = od;
+            vi = oi;
+          }
+        }
+        warp_insert(Ld, Li, k, vd, vi, lane);
+#pragma unroll
+        for (int j = 0; j < CT / 32; ++j)
+          if (ci[j] == vi) {
+            cd[j] = INFINITY;
+            ci[j] = INT_MAX;
+          }
+      }
     }
   }
+  store_lists(s, q0, B, k, tid, out_ids, out_d);
+}
+
+int smem_bytes(int D, int k) {
+  return (int)sizeof(float) * (D * QB + DK * CT + QB * CT + QB + CT + QB * k) +
+         (int)sizeof(int) * QB * k;
+}
+
+using FlatKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, int, int, int, int,
+                            int*, float*);
+
+int launch(FlatKernel kernel, const void* q, const void* x, int n, int B, int D, int k,
+           void* out_ids, void* out_d, void* stream) {
+  if (k < 1 || k > KMAX || D % DK != 0) return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(D, k);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + QB - 1) / QB);
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)x, n, B, D, k, (int*)out_ids,
+      (float*)out_d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int expann_flat_topk_smem_bytes(int D, int k) {
-  return (int)sizeof(float) * (D * QB + DK * CT + QB * CT + QB + CT + QB * k) +
-         (int)sizeof(int) * QB * k;
-}
+int expann_flat_topk_smem_bytes(int D, int k) { return smem_bytes(D, k); }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  The
 // caller guarantees: D % 64 == 0, 1 <= k <= 128, rows 16-byte aligned.
 int expann_flat_topk_bf16(const void* q, const void* x, int n, int B, int D, int k,
                           void* out_ids, void* out_d, void* stream) {
-  if (k < 1 || k > KMAX || D % DK != 0) return (int)cudaErrorInvalidValue;
-  const int smem = expann_flat_topk_smem_bytes(D, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      flat_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + QB - 1) / QB);
-  flat_topk_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)x, n, B, D, k, (int*)out_ids,
-      (float*)out_d);
-  return (int)cudaGetLastError();
+  return launch(flat_topk_kernel, q, x, n, B, D, k, out_ids, out_d, stream);
+}
+
+// The fixed-pass kernel (K3); same contract.
+int expann_flat_topk_fixed_bf16(const void* q, const void* x, int n, int B, int D, int k,
+                                void* out_ids, void* out_d, void* stream) {
+  return launch(flat_topk_fixed_kernel, q, x, n, B, D, k, out_ids, out_d, stream);
 }
 
 const char* expann_error_string(int code) {

@@ -60,11 +60,12 @@ def load_synthetic_uniform_sphere_points(
     cache_dir: str = "./data",
     seed: Optional[int] = None,
     *,
-    device,
+    device="cuda",
 ) -> TestDataset:
     """Synthetic Gaussian dataset with exact ground truth, JSON-cached by
     parameters (reference: src/dataset_loader.h:77-95; same cache filename
-    scheme).  Ground truth is computed on ``device`` by the exact engine."""
+    scheme).  Ground truth is computed on ``device`` (the card by default)
+    by the exact engine."""
     name = f"synthetic_uniform_sphere_n{n}_dim{d}_m{m}_k{k}"
     filename = os.path.join(cache_dir, name + ".dataset")
     if os.path.exists(filename):

@@ -5,9 +5,11 @@ Two modes:
     selection ordered by (d, id) — the ground-truth oracle (reference:
     src/brute_force_engine.h:29-46).  Plain tensor code: the JAX package
     leaves this path to XLA too, so it has no kernel.
-  * ``mode="fused"``: the flat top-k kernel (ops/topk.py) over a bf16
+  * ``mode="fused"``: a flat top-k kernel (ops/topk.py) over a bf16
     corpus; never materializes the ``(B, N)`` distances.  Exact selection
     on the bf16-rounded vectors, so recall@10 is ~1 minus bf16 rounding.
+    ``topk_mode`` picks the kernel: ``"count"`` (count-then-insert, the
+    default) or ``"fixed"`` (k passes per corpus tile); same results.
 
 ``mode="fused_i8"`` of the JAX package is not ported yet.
 """
@@ -21,7 +23,7 @@ import torch
 
 from expann_tpu_torch.models.base import Engine, ParamList, _concat_pending
 from expann_tpu_torch.ops.distance import pad_dim, pairwise_dist2, squared_norms
-from expann_tpu_torch.ops.topk import flat_topk, flat_topk_prepare
+from expann_tpu_torch.ops.topk import MODES, flat_topk, flat_topk_prepare
 
 
 def exact_topk(q: torch.Tensor, x: torch.Tensor, x_norms: torch.Tensor, k: int):
@@ -34,23 +36,24 @@ def exact_topk(q: torch.Tensor, x: torch.Tensor, x_norms: torch.Tensor, k: int):
 
 
 class BruteForceEngine(Engine):
-    """Nearest neighbours over a corpus held on ``device``.
-
-    ``device`` has no default: the caller names the device (``"cuda"`` to
-    serve on the card, ``"cpu"`` for the plain versions)."""
+    """Nearest neighbours over a corpus held on ``device`` (the card by
+    default; ``device="cpu"`` runs the plain versions)."""
 
     def __init__(
         self,
         batch_size: int = 1024,
         precision: str = "highest",
         mode: str = "exact",
+        topk_mode: str = "count",
         *,
-        device,
+        device="cuda",
     ):
         if mode not in ("exact", "fused"):
             raise NotImplementedError(
                 f"mode={mode!r}: only 'exact' and 'fused' are ported (fused_i8 is on the roadmap)"
             )
+        if topk_mode not in MODES:
+            raise ValueError(f"topk_mode={topk_mode!r}: one of {MODES}")
         self.device = torch.device(device)
         self._pending: List[np.ndarray] = []
         self._x = None
@@ -62,6 +65,7 @@ class BruteForceEngine(Engine):
         # "default" and "highest" both mean full f32 here (TF32 is off)
         self.precision = precision
         self.mode = mode
+        self.topk_mode = topk_mode
 
     def name(self) -> str:
         return "Brute-Force Engine"
@@ -115,7 +119,7 @@ class BruteForceEngine(Engine):
             bs = max(self.batch_size, min(q.shape[0], 16384))
             for start in range(0, q.shape[0], bs):
                 chunk = torch.from_numpy(q[start : start + bs]).to(torch.bfloat16)
-                ids, _ = flat_topk(chunk.to(self.device), self._x_fused, k)
+                ids, _ = flat_topk(chunk.to(self.device), self._x_fused, k, mode=self.topk_mode)
                 out.append(ids)
         else:
             for start in range(0, q.shape[0], self.batch_size):

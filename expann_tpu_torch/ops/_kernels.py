@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flat_topk.cu", "fused_search.cu")
+SOURCES = ("flat_topk.cu", "fused_search.cu", "packed_score.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -40,9 +40,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "expann_flat_topk_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "expann_flat_topk_fixed_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "expann_fused_search_bf16": [_P] * 10 + [_I] * 10 + [_P],
     "expann_flat_topk_smem_bytes": [_I, _I],
     "expann_fused_search_smem_bytes": [_I] * 5,
+    "expann_packed_score_bf16": [_P] * 7 + [_I] * 7 + [_P],
+    "expann_packed_score_smem_bytes": [_I, _I],
 }
 
 

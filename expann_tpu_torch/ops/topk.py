@@ -4,8 +4,10 @@ expann_tpu/ops/pallas_topk.py ``flat_topk``).
 ``flat_topk`` returns, for every query, the k nearest corpus rows by
 (distance, id): distances are ``(|q|^2 + |x|^2) - 2 q.x`` clamped at 0,
 with the query rounded to the corpus dtype and all sums in f32.  On a CUDA
-tensor it launches the hand-written kernel ``csrc/flat_topk.cu``; on a CPU
-tensor it runs ``flat_topk_plain``, the same function in plain PyTorch.
+tensor it launches a hand-written kernel of ``csrc/flat_topk.cu``: the
+count-then-insert kernel (``mode="count"``, the default) or the fixed
+k-pass kernel (``mode="fixed"``); both compute the same function.  On a
+CPU tensor it runs ``flat_topk_plain``, the plain PyTorch version of both.
 
 The selection is exact: the TPU kernel's 128-lane pooling and packed keys
 are not reproduced, so both versions agree with the exact oracle
@@ -22,7 +24,8 @@ import torch
 
 from expann_tpu_torch.ops import _kernels
 
-K_MAX = 128  # the kernel keeps up to 128 list slots per query
+K_MAX = 128  # the kernels keep up to 128 list slots per query
+MODES = ("count", "fixed")
 
 
 def flat_topk_prepare(x: np.ndarray, device, dtype=torch.bfloat16) -> Tuple[torch.Tensor, int]:
@@ -58,8 +61,7 @@ def flat_topk_plain(
     return ids, d
 
 
-def flat_topk_cuda(q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the flat top-k kernel (``csrc/flat_topk.cu``) on CUDA tensors."""
+def _launch(name: str, q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     device = x.device
     q = q.to(torch.bfloat16).contiguous()
     _kernels.require_cuda(x, "x", torch.bfloat16, device)
@@ -74,22 +76,34 @@ def flat_topk_cuda(q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tens
     d = torch.empty((B, k), dtype=torch.float32, device=device)
     if B == 0:
         return ids, d
-    lib = _kernels.library()
-    code = lib.expann_flat_topk_bf16(
+    code = getattr(_kernels.library(), f"expann_{name}_bf16")(
         q.data_ptr(), x.data_ptr(), n, B, D, k, ids.data_ptr(), d.data_ptr(),
         _kernels.stream_ptr(device),
     )
-    _kernels.check(code, "flat_topk")
-    _kernels.launches["flat_topk"] += 1
+    _kernels.check(code, name)
+    _kernels.launches[name] += 1
     return ids, d
 
 
-def flat_topk(q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def flat_topk_cuda(q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the count-mode kernel (K2, ``csrc/flat_topk.cu``) on CUDA tensors."""
+    return _launch("flat_topk", q, x, k)
+
+
+def flat_topk_fixed_cuda(q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the fixed k-pass kernel (K3, ``csrc/flat_topk.cu``) on CUDA tensors."""
+    return _launch("flat_topk_fixed", q, x, k)
+
+
+def flat_topk(q: torch.Tensor, x: torch.Tensor, k: int, mode: str = "count") -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest rows of ``x`` (n, D) for each query ``q`` (B, D):
-    ``(ids, d)`` of shape (B, k), ascending by (d, id).  The kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    ``(ids, d)`` of shape (B, k), ascending by (d, id).  ``mode`` picks the
+    kernel on CUDA tensors (``"count"`` or ``"fixed"``); CPU tensors run the
+    plain version, which is both."""
+    if mode not in MODES:
+        raise ValueError(f"mode={mode!r}: one of {MODES}")
     if x.is_cuda:
-        return flat_topk_cuda(q, x, k)
+        return (flat_topk_cuda if mode == "count" else flat_topk_fixed_cuda)(q, x, k)
     if x.device.type != "cpu":
         raise ValueError(f"flat_topk runs on CUDA or CPU tensors, not {x.device}")
     return flat_topk_plain(q, x, k)

@@ -104,6 +104,45 @@ def test_flat_topk_bf16_recall_matches_jax_kernel():
     assert abs(r_port - r_jax) <= 0.01, (r_port, r_jax)
 
 
+def test_flat_topk_fixed_mode_recall_matches_jax_kernel():
+    """The fixed k-pass mode (K3) against the JAX fixed kernel in interpret
+    mode: the same function as the count mode, so the plain version serves
+    both; the JAX kernel pools each 1024-row block to 128 lanes, so the gate
+    is the count test's recall gate."""
+    rng = np.random.default_rng(4)
+    n, B, k = 8100, 256, 10
+    x = rng.standard_normal((n, 128)).astype(np.float32)
+    q = rng.standard_normal((B, 128)).astype(np.float32)
+    xt, qt = torch.from_numpy(x), torch.from_numpy(q)
+    gt, _ = exact_topk(qt, xt, squared_norms(xt), k)
+    ids, d = flat_topk(qt, xt.to(torch.bfloat16), k, mode="fixed")
+    c_ids, c_d = flat_topk(qt, xt.to(torch.bfloat16), k, mode="count")
+    assert torch.equal(ids, c_ids) and torch.equal(d, c_d)
+    jx, jn = j_flat_topk_prepare(x)
+    jids, _ = j_flat_topk(jnp.asarray(q), jx, n_real=jn, k=k, interpret=True, mode="fixed")
+    r_port, r_jax = _recall(ids.numpy(), gt.numpy()), _recall(np.asarray(jids), gt.numpy())
+    assert r_port >= 0.97, r_port
+    assert abs(r_port - r_jax) <= 0.01, (r_port, r_jax)
+    with pytest.raises(ValueError):
+        flat_topk(qt, xt, k, mode="pooled")
+
+
+def test_fused_engine_topk_mode():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((700, 64)).astype(np.float32)
+    q = rng.standard_normal((30, 64)).astype(np.float32)
+    out = {}
+    for mode in ("count", "fixed"):
+        eng = BruteForceEngine(mode="fused", topk_mode=mode, device="cpu")
+        assert eng.topk_mode == mode
+        eng.store_many_vectors(x)
+        eng.build()
+        out[mode] = eng.query_k_batch(q, 10)
+    np.testing.assert_array_equal(out["fixed"], out["count"])
+    with pytest.raises(ValueError):
+        BruteForceEngine(mode="fused", topk_mode="pooled", device="cpu")
+
+
 def test_fused_engine_recall():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((1500, 100)).astype(np.float32)

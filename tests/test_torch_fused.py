@@ -153,7 +153,7 @@ def test_engine_matches_jax_engine_on_the_same_index(data, jax_engine, seeds):
     j_ids = jeng.query_k_batch(q, K)
     cfg = AntitopoConfig(
         M=12, ef_search=40, query_expand=2, fused_cand=8, entry_seeds=seeds,
-        index_filename=path, read_index=True,
+        index_filename=path, read_index=True, use_packed=True, use_fused=True,
     )
     eng = AntitopoEngine(config=cfg, device="cpu")
     eng.build()

@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from expann_tpu_torch.models.build import BuildConfig, build_index
+from expann_tpu_torch.models.search import query_batch
 from expann_tpu_torch.ops import _kernels
 from expann_tpu_torch.ops.fused import fused_search, fused_search_plain, topt_for
-from expann_tpu_torch.ops.packed import build_packed
+from expann_tpu_torch.ops.packed import build_packed, packed_score, packed_score_plain
 from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain
+from expann_tpu_torch.utils.persist import graph_from_numpy, graph_to_numpy
 
 pytestmark = pytest.mark.cuda
 
@@ -29,16 +32,20 @@ def dev():
 def test_kernels_build(dev):
     lib = _kernels.library()
     report = _kernels.build_report()
-    assert "flat_topk_kernel" in report and "fused_search_kernel" in report
+    for name in ("flat_topk_kernel", "flat_topk_fixed_kernel", "fused_search_kernel", "packed_score_kernel"):
+        assert name in report
     assert lib.expann_flat_topk_smem_bytes(128, 10) > 0
 
 
+@pytest.mark.parametrize("mode", ["count", "fixed"])
 @pytest.mark.parametrize("n,B,k", [(5000, 300, 10), (777, 70, 128), (64, 5, 100)])
-def test_flat_topk_matches_plain(dev, n, B, k):
+def test_flat_topk_matches_plain(dev, n, B, k, mode):
     rng = np.random.default_rng(n)
     x = torch.from_numpy(rng.standard_normal((n, 128)).astype(np.float32)).to(dev, torch.bfloat16)
     q = torch.from_numpy(rng.standard_normal((B, 128)).astype(np.float32)).to(dev)
-    ids, d = flat_topk(q, x, k)
+    before = _kernels.launches["flat_topk" if mode == "count" else "flat_topk_fixed"]
+    ids, d = flat_topk(q, x, k, mode=mode)
+    assert _kernels.launches["flat_topk" if mode == "count" else "flat_topk_fixed"] == before + 1
     pids, pd = flat_topk_plain(q, x, k)
     torch.cuda.synchronize()
     # f32 sums in another order: distances agree to a few ulps of |x|^2 ~ 256
@@ -96,3 +103,70 @@ def test_fused_search_matches_plain(dev, expand, cand, R, d, EF, ef):
         real = row[row < n].tolist()
         assert len(set(real)) == len(real)
     assert bool((iters >= 1).all())
+
+
+@pytest.mark.parametrize("topt", [0, 8])
+@pytest.mark.parametrize("R", [40, 128])
+@pytest.mark.parametrize("B", [1, 37, 256])
+def test_packed_score_matches_plain(dev, B, R, topt):
+    """K4 against its plain version on the same CUDA tensors, RS = 48 or 128
+    (R_tile 128), sentinel selections and short rows included."""
+    n, E = 4000, 2
+    vecs, norms, adj, rng = _random_graph(dev, n, R, 128, seed=B + R + topt)
+    adj[::7, R - 9 :] = n
+    adj[::11, 3:] = n
+    packed, pn, pi = build_packed(vecs, norms, adj)
+    sel = torch.from_numpy(rng.integers(0, n + 1, (B, E)).astype(np.int32)).to(dev)
+    sel[::3, -1] = n
+    sel[0, 0] = 0  # a row of three neighbours
+    q = torch.from_numpy(rng.standard_normal((B, 128)).astype(np.float32)).to(dev)
+    before = _kernels.launches["packed_score"]
+    d, ids = packed_score(packed, pn, pi, sel, q, topt=topt)
+    assert _kernels.launches["packed_score"] == before + 1
+    pd, pids = packed_score_plain(packed, pn, pi, sel, q, topt=topt)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(pd)
+    assert torch.equal(torch.isfinite(d), fin)
+    torch.testing.assert_close(d[fin], pd[fin], rtol=1e-5, atol=1e-3)
+    if topt == 0:
+        assert torch.equal(ids, pids)
+        return
+    # an id may differ from the plain one only on a tie: each kernel id's
+    # distance, looked up in the node's full row, is the distance it reports
+    full_d, full_i = packed_score_plain(packed, pn, pi, sel, q, topt=0)
+    full_d, full_i = full_d.view(B, E, -1), full_i.view(B, E, -1)
+    kd, ki = d.view(B, E, topt), ids.view(B, E, topt)
+    hit = (full_i[:, :, None, :] == ki[:, :, :, None]) & torch.isfinite(kd)[:, :, :, None]
+    looked_up = torch.where(hit, full_d[:, :, None, :], 0.0).sum(-1)
+    ok = torch.isfinite(kd)
+    torch.testing.assert_close(looked_up[ok], kd[ok], rtol=1e-5, atol=1e-3)
+    assert float((ids != pids).float().mean()) < 0.01
+    # passes past the finite slots give the node's lane-0 id
+    lane0 = pi[sel.long()][:, :, :1].expand(B, E, topt)
+    assert torch.equal(ki[~ok], lane0[~ok])
+
+
+@pytest.mark.parametrize("use_packed", [True, False])
+def test_query_batch_matches_cpu(dev, use_packed):
+    """The per-iteration route on the card (K4 with use_packed) against the
+    same call on CPU tensors (plain versions), on one graph."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((3000, 64)).astype(np.float32)
+    q = rng.standard_normal((64, 128)).astype(np.float32)
+    q[:, 64:] = 0
+    g_dev = build_index(x, BuildConfig(M=16, ef_construction=80), dev)
+    g_cpu = graph_from_numpy(graph_to_numpy(g_dev), "cpu")
+    out = {}
+    for g in (g_dev, g_cpu):
+        if use_packed:
+            g.packed, g.packed_norms, g.packed_ids = build_packed(g.vectors, g.norms, g.adj_bottom)
+        before = _kernels.launches["packed_score"]
+        qg = torch.from_numpy(q).to(g.vectors.device)
+        ids, _, ncomp = query_batch(g, qg, 10, 64, expand=2, use_packed=use_packed, packed_topt=8)
+        launched = _kernels.launches["packed_score"] - before
+        assert (launched > 0) == (use_packed and g is g_dev)
+        out[g.vectors.device.type] = (ids.cpu().numpy(), int(ncomp.sum()))
+    (a, na), (b, nb) = out["cuda"], out["cpu"]
+    overlap = np.mean([len(set(r) & set(s)) / 10 for r, s in zip(a, b)])
+    assert overlap >= 0.99, overlap
+    assert abs(na - nb) <= 0.01 * nb

@@ -119,5 +119,14 @@ def test_build_packed_matches(jax_graph, dtype):
 
 
 def test_port_imports_no_jax():
-    code = "import sys, expann_tpu_torch; import expann_tpu_torch.models.search; assert 'jax' not in sys.modules"
+    """Every module of the port imports without loading JAX or the JAX
+    package."""
+    code = (
+        "import importlib, pkgutil, sys, expann_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(expann_tpu_torch.__path__, 'expann_tpu_torch.')]\n"
+        "for name in names: importlib.import_module(name)\n"
+        "assert len(names) >= 16, names\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'expann_tpu.')) or m == 'expann_tpu']\n"
+        "assert not bad, bad\n"
+    )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
