@@ -8,7 +8,9 @@ Phases, one line each:
   3. flat_topk     the count-mode flat top-k kernel (K2) against its plain
                    version, random bf16 corpus n=56000, d=128, 4096 queries,
                    k=10; flat_fixed: the fixed-pass kernel (K3) the same way
-                   at k=10 and k=100;
+                   at k=10 and k=100; flat_topk_s8: K2-s8 and K3-s8 on random
+                   s8 codes of the same shape at k=30 and k=100, ids and
+                   distances identical to the plain version;
   4. canonical     config_synthetic.json (n=56000, d=128, 400 queries, k=10):
                    the flat engine (mode="fused") and the graph engine with
                    bench.py's graph config, built on the card and served at
@@ -23,14 +25,27 @@ Phases, one line each:
   7. small_batch   the per-iteration route at ef=120: the 400 queries one per
                    call (as query_k calls) and in 32-query calls, identical
                    ids, recall@10;
-  8. launches      kernel launches counted on each path: the counts are set to
-                   0 just before a path and read just after;
-  9. times         graph and flat QPS on 65536 fresh queries, per-call latency
+  8. times         graph and flat QPS on 65536 fresh queries, per-call latency
                    at B = 1, 8, 32 on both graph routes (host clock, numpy in
                    and out), and kernel / plain / library-chain times (CUDA
-                   events) at the paths' shapes, beside each kernel's bound.
-Then the kernel summary as JSON, the card's name and power limit as
-nvidia-smi prints them, and as the last line
+                   events) at the paths' shapes, beside each kernel's bound;
+  9. canonical_quantized  quantized serving on the canonical config: the flat
+                   engine mode="fused_i8" on both query wires and in both
+                   top-k modes, then bench.py's flow on the graph engine built
+                   in phase 4 (use_compression=True, _attach_codes()): s8
+                   packed blocks at ef 100 / 110 / 120 and the i8 query wire
+                   at ef 110 / 120, recall@10 and distance counts;
+ 10. fused_s8      the s8 traversal kernel (K1-s8) against its plain version
+                   on that graph at ef=120, from the same code-space seeds;
+ 11. small_batch_compressed  the per-iteration route of the compressed engine
+                   (the uint8 gather beam, no kernel): 400 one-query calls and
+                   32-query calls, identical ids;
+ 12. times (quantized)  QPS of the quantized paths, and K1-s8, K2-s8, K3-s8
+                   beside their plain versions, bounds and library chain;
+ 13. launches      kernel launches counted on each path: the counts are set to
+                   0 just before a path and read just after.
+Then the script's run time, the kernel summary as JSON, the card's name
+and power limit as nvidia-smi prints them, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 A failed check raises: the script exits non-zero without that last line,
@@ -70,8 +85,13 @@ K4_B = (1, 32, 16384)
 # |d_kernel - d_plain| allowed: both sum 128 f32 products of magnitude <= ~|q||x|
 # in another order; |d| ~ 256 here, so a few hundred ulps of 256 plus a margin
 D_ATOL, D_RTOL = 2e-3, 1e-5
-# the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, bf16 tensor FLOP/s
-HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, and the
+# tensor-core operations/s of each operand type
+HBM_BPS = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+QUANT_EFS = (100, 110, 120)  # bench.py:306 (s8 blocks)
+WIRE_EFS = (110, 120)  # bench.py:329 (i8 query wire)
+FLAT_S8_KS = (30, 100)  # 30: fused_i8's scan at k=10 (rerank_mult=3)
 
 
 def phase(name: str, **vals) -> None:
@@ -101,14 +121,18 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, ops: float, dtype: str = "bf16") -> tuple:
     """The least time the card could take, in ms, and what sets it: the
-    bytes over HBM bandwidth or the operations over the bf16 tensor peak."""
-    tb, to = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    bytes over HBM bandwidth or the operations over the tensor peak of the
+    operands' type (bf16 or int8)."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[dtype] * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-KERNEL_NAMES = ("flat_topk_fixed_kernel", "flat_topk_kernel", "fused_search_kernel", "packed_score_kernel")
+KERNEL_NAMES = (
+    "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel", "flat_topk_kernel", "flat_topk_s8_kernel",
+    "fused_search_kernel", "fused_search_s8_kernel", "packed_score_kernel",
+)
 
 
 def ptxas_summary(report: str) -> dict:
@@ -166,9 +190,206 @@ def profile_call(torch, kernels, eng, queries: np.ndarray) -> dict:
                 iterations=kernels.launches["packed_score"] - k4)
 
 
+def rows_unique(ids: np.ndarray) -> bool:
+    return all(len(set(r.tolist())) == ids.shape[1] for r in ids)
+
+
+def flat_s8_phase(torch, dev) -> dict:
+    """K2-s8 and K3-s8 against the plain version on random s8 codes (n=56000,
+    d=128, 4096 queries): both sides compute exact integer distances and
+    break ties by id, so ids and distances must be identical.  Returns each
+    kernel's largest |d_kernel - d_plain|."""
+    from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_fixed_cuda, flat_topk_plain
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(-127, 128, (N, D)).astype(np.int8)).to(dev)
+    q = torch.from_numpy(rng.integers(-127, 128, (FLAT_B, D)).astype(np.int8)).to(dev)
+    err = {}
+    for label, fn in (("flat_topk_s8", flat_topk_cuda), ("flat_fixed_s8", flat_topk_fixed_cuda)):
+        for k in FLAT_S8_KS:
+            ids, dk = fn(q, x, k)
+            pids, pd = flat_topk_plain(q, x, k)
+            torch.cuda.synchronize()
+            e = float((dk - pd).abs().max())
+            err[label] = max(err.get(label, 0.0), e)
+            n_diff = int((ids != pids).sum())
+            phase(label, n=N, B=FLAT_B, k=k, max_abs_err=f"{e:.3e}", differing_ids=n_diff)
+            check(bool(torch.equal(dk, pd)) and n_diff == 0, f"{label} k={k}: not identical to the plain version")
+    return err
+
+
+def quantized_phases(torch, dev, ds, graph, card: str, topt: int) -> dict:
+    """Phases 9-12, quantized serving: the fused_i8 flat engine, bench.py's
+    flow on the graph engine ``graph`` built in phase 4, K1-s8 against its
+    plain version, the compressed small-batch route, and the quantized
+    times.  Returns the launch counts of its two paths, K1-s8's largest
+    beam-distance error and the s8 kernels' times."""
+    from expann_tpu_torch import BruteForceEngine
+    from expann_tpu_torch.models.search import entry_beam, kernel_query, rerank
+    from expann_tpu_torch.ops import _kernels
+    from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain
+    from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_fixed_cuda, flat_topk_plain, quantize_query_i8
+
+    launches, times, failures = {}, {}, []
+
+    # ---- 9. canonical_quantized: one path, counts reset just before it ----
+    _kernels.launches.clear()
+    flat8 = {}
+    for wire in ("bf16", "i8"):
+        for topk_mode in ("count", "fixed"):
+            eng = BruteForceEngine(mode="fused_i8", query_wire=wire, topk_mode=topk_mode, device=dev)
+            eng.store_many_vectors(ds.vecs)
+            eng.build()
+            ids = eng.query_k_batch(ds.queries, K)
+            flat8[wire, topk_mode] = (eng, ids)
+            rec = recall(ids, ds.ground_truth)
+            phase("canonical_quantized", engine="flat", mode="fused_i8", query_wire=wire, topk_mode=topk_mode,
+                  recall_at_10=f"{rec:.4f}", ids_equal_count_mode=bool((ids == flat8[wire, "count"][1]).all()))
+            check(ids.shape == (M_QUERIES, K) and rows_unique(ids), f"fused_i8 ({wire}, {topk_mode}): duplicates")
+            if rec < 0.97:
+                failures.append(f"flat fused_i8 recall@10 {rec} < 0.97 (wire {wire}, {topk_mode})")
+            if not (ids == flat8[wire, "count"][1]).all():
+                failures.append(f"fused_i8 topk_mode=fixed ids differ from count mode (wire {wire})")
+    # bench.py:300-339 on the engine already built and served in bf16
+    graph.cfg.use_compression = True
+    graph._attach_codes()
+    graph_rec = {}
+    for wire, efs in (("bf16", QUANT_EFS), ("i8", WIRE_EFS)):
+        graph.cfg.query_wire = wire
+        for ef in efs:
+            graph.set_ef_search(ef)
+            gids = graph.query_k_batch(ds.queries, K)
+            check(gids.shape == (M_QUERIES, K) and rows_unique(gids),
+                  f"compressed graph results ({wire} wire, ef={ef}) have wrong shape or duplicates")
+            graph_rec[wire, ef] = recall(gids, ds.ground_truth)
+            phase("canonical_quantized", engine="graph", packed_dtype=str(graph.graph.packed.dtype).split(".")[-1],
+                  query_wire=wire, ef=ef, recall_at_10=f"{graph_rec[wire, ef]:.4f}",
+                  distcomps_per_query=f"{graph.num_distcomps / M_QUERIES:.1f}",
+                  distcomps_compressed_per_query=f"{graph.num_distcomps_compressed / M_QUERIES:.1f}")
+    graph.cfg.query_wire = "bf16"
+    launches["quantized"] = dict(_kernels.launches)
+    g = graph.graph
+    check(g.packed.dtype == torch.int8 and g.packed_codes is not None, f"graph.packed is {g.packed.dtype}, not int8")
+    for wire in ("bf16", "i8"):
+        if graph_rec[wire, 120] < 0.95:
+            failures.append(f"compressed graph recall@10 at ef=120 ({wire} wire) {graph_rec[wire, 120]} < 0.95")
+    rs = g.packed.shape[1]
+    phase("canonical_quantized", packed_bytes=g.packed.numel(), rs=rs,
+          flat_codes_bytes=flat8["i8", "count"][0]._x_fused.numel(),
+          rerank_corpus_bytes=flat8["i8", "count"][0]._x.numel() * 4)
+
+    # ---- 10. K1-s8 against its plain version, same code-space seeds --------
+    qg = torch.from_numpy(ds.queries).to(torch.bfloat16).to(dev).float()
+    EF, ef = 128, 120
+    args = (g.packed, g.packed_norms, g.packed_ids)
+    bd0, bi0, _ = entry_beam(g, qg, EF, GRAPH_CFG["entry_seeds"])
+    fargs = (kernel_query(g, qg), bd0, bi0, ef, GRAPH_CFG["query_expand"], topt, 8 * ef + 16)
+    ki, kd, kn, _ = fused_search_cuda(*args, *fargs)
+    pi_, pd_, pn, _ = fused_search_plain(*args, *fargs)
+    torch.cuda.synchronize()
+    same = (ki == pi_) & (ki < N)
+    fused_s8_err = float((kd - pd_).abs()[same].max())
+    k_top = rerank(g, qg, ki, K)[0].cpu().numpy()
+    p_top = rerank(g, qg, pi_, K)[0].cpu().numpy()
+    overlap = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / K for a, b in zip(k_top, p_top)]))
+    r_diff = recall(k_top, ds.ground_truth) - recall(p_top, ds.ground_truth)
+    nk, npl = int(kn.sum()), int(pn.sum())
+    phase("fused_s8", ef=ef, top10_overlap=f"{overlap:.4f}", recall_diff=f"{r_diff:+.4f}", distcomps_kernel=nk,
+          distcomps_plain=npl, beams_identical=f"{int((ki == pi_).all(1).sum())}/{M_QUERIES}",
+          max_abs_err=f"{fused_s8_err:.3e}")
+    check(overlap >= 0.99, f"fused_search_s8: top-10 overlap with the plain version {overlap} < 0.99")
+    check(abs(r_diff) <= 0.005, f"fused_search_s8: recall differs from the plain version by {r_diff}")
+    check(abs(nk - npl) <= 0.01 * npl, f"fused_search_s8: distcomps {nk} vs plain {npl}")
+    check(bool(torch.equal(kd[same], pd_[same])), f"fused_search_s8: beam distances differ by {fused_s8_err}")
+
+    # ---- 11. the compressed engine's per-iteration route -----------------
+    graph.set_ef_search(120)
+    _kernels.launches.clear()
+    t0 = time.perf_counter()
+    single = np.concatenate([graph.query_k_batch(ds.queries[i : i + 1], K) for i in range(M_QUERIES)])
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunked = np.concatenate(
+        [graph.query_k_batch(ds.queries[s : s + SMALL_CHUNK], K) for s in range(0, M_QUERIES, SMALL_CHUNK)]
+    )
+    chunked_s = time.perf_counter() - t0
+    launches["small_batch_compressed"] = dict(_kernels.launches)
+    n_same = int((single == chunked).all(1).sum())
+    phase("small_batch_compressed", ef=120, quant_mode=graph.cfg.quant_mode,
+          recall_at_10=f"{recall(single, ds.ground_truth):.4f}", rows_identical=f"{n_same}/{M_QUERIES}",
+          distcomps_compressed_per_query=f"{graph.num_distcomps_compressed / (2 * M_QUERIES):.1f}",
+          seconds_single=f"{single_s:.2f}", seconds_chunks_of_32=f"{chunked_s:.2f}")
+    check(n_same == M_QUERIES, f"compressed small batches: ids differ between 1- and 32-query calls on {M_QUERIES - n_same} rows")
+    check(rows_unique(single) and rows_unique(chunked), "compressed small batches: duplicate ids")
+
+    # ---- 12. times --------------------------------------------------------
+    rng = np.random.default_rng(4)
+    for label, eng, ef_q, wire in (("flat_i8", flat8["i8", "count"][0], None, None),
+                                   ("graph_compressed_ef110", graph, 110, "bf16"),
+                                   ("graph_compressed_ef120", graph, 120, "bf16"),
+                                   ("graph_wire_i8_ef120", graph, 120, "i8")):
+        if ef_q is not None:
+            graph.cfg.query_wire = wire
+            graph.set_ef_search(ef_q)
+        eng.query_k_batch(rng.standard_normal((1024, D)).astype(np.float32), K)  # warm-up
+        runs = []
+        for _ in range(2):
+            batch = rng.standard_normal((QPS_QUERIES, D)).astype(np.float32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.query_k_batch(batch, K)
+            runs.append(QPS_QUERIES / (time.perf_counter() - t0))
+        phase("times", path=label, queries=QPS_QUERIES, qps=",".join(f"{v:.0f}" for v in runs), card=card)
+    graph.cfg.query_wire = "bf16"
+
+    eng8 = flat8["i8", "count"][0]
+    x8, k8 = eng8._x_fused, 3 * K
+    q8 = quantize_query_i8(rng.standard_normal((FLAT_CHUNK, D)).astype(np.float32), eng8._i8_center, eng8._i8_scale)
+    q8 = torch.from_numpy(q8).to(dev)
+    xn8 = (x8.int() ** 2).sum(1)
+    qn8 = (q8.int() ** 2).sum(1)
+
+    def flat8_chain():  # one s8 x s8 -> s32 product, then top-k
+        return torch.topk((qn8[:, None] + xn8[None, :]) - 2 * torch._int_mm(q8, x8.T), k8, dim=1, largest=False)
+
+    try:
+        lib_ms = cuda_ms(torch, flat8_chain, reps=3)
+    except RuntimeError as e:  # a yardstick only: report it missing, keep going
+        lib_ms = None
+        phase("times", library="torch._int_mm + topk", unavailable=repr(str(e).splitlines()[0][:120]))
+    plain_ms = cuda_ms(torch, lambda: flat_topk_plain(q8, x8, k8), reps=2)
+    fb = bound(N * D + FLAT_CHUNK * D + FLAT_CHUNK * k8 * 8, 2.0 * FLAT_CHUNK * N * D, "int8")
+    for name, fn in (("flat_topk_s8", flat_topk_cuda), ("flat_topk_fixed_s8", flat_topk_fixed_cuda)):
+        ms = cuda_ms(torch, lambda: fn(q8, x8, k8), reps=5)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=fb[0], bound_by=fb[1])
+        phase("times", kernel=name, B=FLAT_CHUNK, n=N, k=k8, ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+              library_ms="null" if lib_ms is None else f"{lib_ms:.3f}", bound_ms=f"{fb[0]:.4f}", bound_by=fb[1],
+              achieved_tops=f"{2.0 * FLAT_CHUNK * N * D / (ms * 1e-3) / 1e12:.1f}", card=card)
+    del x8, q8, xn8, qn8
+
+    Bq = GRAPH_CFG["query_block"]
+    qt = torch.from_numpy(rng.standard_normal((Bq, D)).astype(np.float32)).to(torch.bfloat16).to(dev).float()
+    bd0, bi0, _ = entry_beam(g, qt, EF, GRAPH_CFG["entry_seeds"])
+    targs = (*args, kernel_query(g, qt), bd0, bi0, ef, GRAPH_CFG["query_expand"], topt, 8 * ef + 16)
+    ms = cuda_ms(torch, lambda: fused_search_cuda(*targs), reps=5)
+    plain_ms = cuda_ms(torch, lambda: fused_search_plain(*targs), reps=1)
+    # bytes the traversal must read: per expansion one RS x D s8 block plus RS
+    # norms and RS ids; queries and beams in and out
+    expansions = int(fused_search_cuda(*targs)[2].sum()) / rs
+    kb = bound(expansions * rs * (D + 8) + Bq * (D * 4 + 4 * EF * 4 + 8), expansions * rs * D * 2.0, "int8")
+    times["fused_search_s8"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=kb[0], bound_by=kb[1])
+    phase("times", kernel="fused_search_s8", B=Bq, ef=ef, EF=EF, ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+          bound_ms=f"{kb[0]:.3f}", bound_by=kb[1], expansions_per_query=f"{expansions / Bq:.1f}",
+          achieved_tb_per_s=f"{expansions * rs * (D + 8) / (ms * 1e-3) / 1e12:.2f}", card=card)
+
+    check(not failures, "; ".join(failures))
+    return dict(launches=launches, times=times, fused_s8_err=fused_s8_err)
+
+
 def main() -> None:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
@@ -203,6 +424,9 @@ def main() -> None:
         "flat_topk_fixed_kernel": lib.expann_flat_topk_smem_bytes(D, K),
         "fused_search_kernel": lib.expann_fused_search_smem_bytes(D, 128, 128, GRAPH_CFG["query_expand"], topt),
         "packed_score_kernel": lib.expann_packed_score_smem_bytes(D, 128),
+        "flat_topk_s8_kernel": lib.expann_flat_topk_smem_bytes(D, 3 * K),
+        "flat_topk_fixed_s8_kernel": lib.expann_flat_topk_smem_bytes(D, 3 * K),
+        "fused_search_s8_kernel": lib.expann_fused_search_smem_bytes(D, 128, 128, GRAPH_CFG["query_expand"], topt),
     }
     for kname, info in sorted(ptx.items()):
         phase("build", kernel=kname, arch=info["arch"], registers=info["registers"],
@@ -233,6 +457,7 @@ def main() -> None:
                   differing_ids=int(mism.sum()), worst_tie_gap=f"{tie_err:.3e}")
             del exact_of_kernel_ids
     del xr, qr, qb, xb
+    flat_err.update(flat_s8_phase(torch, dev))
 
     # ---- 4. the canonical config: the batched main path --------------------
     with tempfile.TemporaryDirectory() as cache:
@@ -365,17 +590,7 @@ def main() -> None:
     check(all(len(set(r.tolist())) == K for r in single), "small batches: duplicate ids")
     check(small_recall >= 0.95, f"small-batch recall@10 at ef=120 {small_recall} < 0.95")
 
-    # ---- 8. launches on each path -------------------------------------------
-    for path, counts in launches.items():
-        phase("launches", path=path, **counts)
-    check(launches["batched"].get("flat_topk", 0) > 0 and launches["batched"].get("fused_search", 0) > 0,
-          f"a kernel of the batched path was never launched: {launches['batched']}")
-    check(launches["batched"].get("packed_score", 0) == 0, "400-query calls took the per-iteration route")
-    check(launches["flat_fixed"].get("flat_topk_fixed", 0) > 0, f"K3 never launched: {launches['flat_fixed']}")
-    check(launches["small_batch"].get("packed_score", 0) > 0 and launches["small_batch"].get("fused_search", 0) == 0,
-          f"small batches did not take the per-iteration route: {launches['small_batch']}")
-
-    # ---- 9. times ---------------------------------------------------------
+    # ---- 8. times ---------------------------------------------------------
     rng = np.random.default_rng(1)
     qps = {}
     for label, eng, ef_q in (("graph_ef100", graph, 100), ("graph_ef120", graph, 120), ("flat", flat, None)):
@@ -470,13 +685,44 @@ def main() -> None:
               library_ms=f"{lib_ms:.4f}", bound_ms=f"{k4_bound[0]:.5f}", bound_by=k4_bound[1],
               achieved_tb_per_s=f"{pairs * rs * D * 2 / (ms * 1e-3) / 1e12:.3f}", card=card)
 
+    # ---- 9-12. quantized serving ------------------------------------------
+    del args  # the bf16 layout: the flip below drops it from the graph
+    graph.set_ef_search(120)
+    qres = quantized_phases(torch, dev, ds, graph, card, topt)
+    launches.update(qres["launches"])
+    times.update(qres["times"])
+
+    # ---- 13. launches on each path ------------------------------------------
+    for path, counts in launches.items():
+        phase("launches", path=path, **counts)
+    check(launches["batched"].get("flat_topk", 0) > 0 and launches["batched"].get("fused_search", 0) > 0,
+          f"a kernel of the batched path was never launched: {launches['batched']}")
+    check(launches["batched"].get("packed_score", 0) == 0, "400-query calls took the per-iteration route")
+    check(launches["flat_fixed"].get("flat_topk_fixed", 0) > 0, f"K3 never launched: {launches['flat_fixed']}")
+    check(launches["small_batch"].get("packed_score", 0) > 0 and launches["small_batch"].get("fused_search", 0) == 0,
+          f"small batches did not take the per-iteration route: {launches['small_batch']}")
+    quant = launches["quantized"]
+    check(all(quant.get(name, 0) > 0 for name in ("flat_topk_s8", "flat_topk_fixed_s8", "fused_search_s8")),
+          f"a kernel of the quantized path was never launched: {quant}")
+    check(quant.get("fused_search", 0) == 0 and quant.get("flat_topk", 0) == 0,
+          f"the quantized path launched a bf16 kernel: {quant}")
+    small_c = launches["small_batch_compressed"]
+    check(not any(small_c.get(name, 0) for name in ("fused_search", "fused_search_s8", "packed_score")),
+          f"compressed small batches launched the fused traversal or the block scorer: {small_c}")
+
     rows = [
         ("fused_search", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:69",
          launches["batched"]["fused_search"], fused_err),
+        ("fused_search_s8", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:258",
+         quant["fused_search_s8"], qres["fused_s8_err"]),
         ("flat_topk", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:147",
          launches["batched"]["flat_topk"], flat_err["flat_topk"]),
+        ("flat_topk_s8", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:211",
+         quant["flat_topk_s8"], flat_err["flat_topk_s8"]),
         ("flat_topk_fixed", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:39",
          launches["flat_fixed"]["flat_topk_fixed"], flat_err["flat_fixed"]),
+        ("flat_topk_fixed_s8", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:65",
+         quant["flat_topk_fixed_s8"], flat_err["flat_fixed_s8"]),
         ("packed_score", "expann_tpu_torch/csrc/packed_score.cu", "expann_tpu/ops/pallas_beam.py:67",
          launches["small_batch"]["packed_score"], ps_err),
     ]
@@ -485,6 +731,7 @@ def main() -> None:
          "max_abs_err": err, **times[name]}
         for name, src, rep, n_launch, err in rows
     ]
+    phase("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -2,10 +2,11 @@
 
 Same engines and the same index format as ``expann_tpu``; the JAX package
 is the reference this one is tested against.  Plain tensor code is
-PyTorch; the two kernels of the serving path are hand-written CUDA C++
-under ``csrc/`` (fused graph traversal, flat top-k), built with ``nvcc``
-at first use (``ops/_kernels.py``).  On CPU tensors every kernel wrapper
-runs its plain PyTorch version instead.
+PyTorch; the kernels of the serving path are hand-written CUDA C++ under
+``csrc/`` (fused graph traversal and flat top-k over bf16 or s8 codes, the
+per-iteration block scorer), built with ``nvcc`` at first use
+(``ops/_kernels.py``).  On CPU tensors every kernel wrapper runs its plain
+PyTorch version instead.
 
 The build and the exact rerank are float32: TF32 is switched off for
 matmuls and cuDNN here, so ``precision="default"`` and ``"highest"``

@@ -1,14 +1,24 @@
-// Flat exact k-NN over a bf16 corpus: streamed distances + running top-k.
+// Flat exact k-NN over a bf16 or s8 corpus: streamed distances + running
+// top-k.
 //
-// Two kernels share the tile code.  `flat_topk_kernel` (K2) replaces
+// Four kernels share the tile code.  `flat_topk_kernel` (K2, bf16) and
+// `flat_topk_s8_kernel` (K2-s8) replace
 // expann_tpu/ops/pallas_topk.py:_topk_merge_kernel_count (the
-// `flat_topk(mode="count")` Pallas kernel, launcher :286, call :325);
-// `flat_topk_fixed_kernel` (K3) replaces :_topk_merge_kernel (:39, the
-// `mode="fixed"` branch of the same call).  Both compute the same function.
+// `flat_topk(mode="count")` Pallas kernel, launcher :286, call :325; its s8
+// branch :211-220); `flat_topk_fixed_kernel` (K3) and
+// `flat_topk_fixed_s8_kernel` (K3-s8) replace :_topk_merge_kernel (:39, the
+// `mode="fixed"` branch of the same call; its s8 branch :65-79).  Count and
+// fixed compute the same function.
 //
-// What it computes: for every query q (bf16-rounded) the k nearest corpus
-// rows by squared L2, d = (|q|^2 + |x|^2) - 2 q.x clamped at 0, with all
-// products and sums in f32, ordered by (d, id).  Selection is EXACT per
+// What it computes: for every query q (bf16-rounded, or s8 codes against an
+// s8 corpus) the k nearest corpus rows by squared L2,
+// d = (|q|^2 + |x|^2) - 2 q.x clamped at 0, with all products and sums in
+// f32, ordered by (d, id).  On s8 codes every product and partial sum is an
+// integer below 2^24 (|code| <= 127, D <= 512), so the f32 sums are exact
+// in any order and d is the exact integer distance rounded once to f32:
+// the TPU kernel's s8 x s8 -> s32 product, computed here by staging the
+// codes to f32 (exact) in the same tile code; int8 tensor-core `mma` is a
+// later redesign.  Selection is EXACT per
 // row: the TPU kernel's 128-lane pooling (pallas_topk.py:95-101) and its
 // packed (distance | lane) keys are not carried over, so the plain
 // reference for this kernel is the exact oracle.  The (B, N) distance
@@ -16,9 +26,10 @@
 //
 // What bounds it on this card: f32 FMA issue.  B x N x D multiply-adds
 // (65536 x 56000 x 128 = 470 G) against ~67 TFLOP/s of non-tensor f32; the
-// corpus (56000 x 128 bf16 = 14 MB) stays in the 50 MB L2, so device
-// memory is not the limit.  Tensor cores (bf16 wgmma) would lift the
-// bound ~15x; that is later work — this kernel is the simple, right one.
+// corpus (56000 x 128 bf16 = 14 MB, s8 7 MB) stays in the 50 MB L2, so
+// device memory is not the limit.  Tensor cores (bf16 wgmma, int8 mma)
+// would lift the bound ~15x / ~30x; that is later work — these kernels are
+// the simple, right ones.
 //
 // Design: one block of 256 threads per tile of QB=64 queries.  The query
 // tile sits in shared memory as f32, transposed (feature-major).  The
@@ -94,6 +105,37 @@ __device__ void warp_insert(float* Ld, int* Li, int k, float vd, int vi, int lan
   __syncwarp();
 }
 
+// Corpus / query element types: how many fit in 16 bytes, and their f32
+// values (exact for both).
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int PER16 = 8;
+  __device__ __forceinline__ static float value(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ __forceinline__ static void unpack(const uint4& raw, float* f) {
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 v = __bfloat1622float2(h2[j]);
+      f[2 * j] = v.x;
+      f[2 * j + 1] = v.y;
+    }
+  }
+};
+
+template <>
+struct Elem<int8_t> {
+  static constexpr int PER16 = 16;
+  __device__ __forceinline__ static float value(int8_t v) { return (float)v; }
+  __device__ __forceinline__ static void unpack(const uint4& raw, float* f) {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) f[j] = (float)b[j];
+  }
+};
+
 // The block's shared-memory layout.
 struct Tile {
   float* qs;  // [D][QB] query tile, transposed
@@ -117,13 +159,14 @@ __device__ __forceinline__ Tile tile_layout(float* base, int D, int k) {
   return s;
 }
 
-// Stage the block's QB queries (bf16 -> f32, transposed), their squared
-// norms, and empty running lists.
-__device__ void load_queries(const Tile& s, const __nv_bfloat16* __restrict__ q, int q0, int B,
-                             int D, int k, int tid) {
+// Stage the block's QB queries (-> f32, transposed), their squared norms,
+// and empty running lists.
+template <typename T>
+__device__ void load_queries(const Tile& s, const T* __restrict__ q, int q0, int B, int D, int k,
+                             int tid) {
   for (int i = tid; i < QB * D; i += THREADS) {
     const int qi = i / D, c = i - qi * D;
-    s.qs[c * QB + qi] = (q0 + qi < B) ? __bfloat162float(q[(size_t)(q0 + qi) * D + c]) : 0.f;
+    s.qs[c * QB + qi] = (q0 + qi < B) ? Elem<T>::value(q[(size_t)(q0 + qi) * D + c]) : 0.f;
   }
   for (int i = tid; i < QB * k; i += THREADS) {
     s.ld[i] = INFINITY;
@@ -142,8 +185,10 @@ __device__ void load_queries(const Tile& s, const __nv_bfloat16* __restrict__ q,
 
 // Distances of the QB queries to corpus rows r0 .. r0+CT into s.ds, clamped
 // at 0, rows >= n at +inf.  Ends with a barrier: s.ds is complete.
-__device__ void tile_distances(const Tile& s, const __nv_bfloat16* __restrict__ x, int n,
-                               int D, int r0, int tid) {
+template <typename T>
+__device__ void tile_distances(const Tile& s, const T* __restrict__ x, int n, int D, int r0,
+                               int tid) {
+  constexpr int PER16 = Elem<T>::PER16;
   const int tx = tid & 15, ty = tid >> 4;  // rows 4tx.., queries 4ty..
   float acc[4][4];
 #pragma unroll
@@ -156,18 +201,15 @@ __device__ void tile_distances(const Tile& s, const __nv_bfloat16* __restrict__ 
     __syncthreads();  // the previous chunk (and tile merge) is consumed
     // stage rows r0..r0+CT, features c0..c0+DK: 16-byte loads, one row
     // per thread, conflict-free transposed stores
-    for (int i = tid; i < CT * (DK / 8); i += THREADS) {
-      const int row = i % CT, c8 = (i / CT) * 8;
+    for (int i = tid; i < CT * (DK / PER16); i += THREADS) {
+      const int row = i % CT, cc = (i / CT) * PER16;
       uint4 raw = make_uint4(0u, 0u, 0u, 0u);
       if (r0 + row < n)
-        raw = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(r0 + row) * D + c0 + c8));
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        raw = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(r0 + row) * D + c0 + cc));
+      float f[PER16];
+      Elem<T>::unpack(raw, f);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(h2[j]);
-        s.xs[(c8 + 2 * j) * CT + row] = f.x;
-        s.xs[(c8 + 2 * j + 1) * CT + row] = f.y;
-      }
+      for (int j = 0; j < PER16; ++j) s.xs[(cc + j) * CT + row] = f[j];
     }
     __syncthreads();
     if (tid < CT) {
@@ -218,12 +260,12 @@ __device__ void store_lists(const Tile& s, int q0, int B, int k, int tid,
 
 // Count mode (K2): a ballot finds the tile's candidates below the query's
 // current k-th (d, id); only those are inserted.
-__global__ void __launch_bounds__(THREADS)
-flat_topk_kernel(const __nv_bfloat16* __restrict__ q,  // (B, D)
-                 const __nv_bfloat16* __restrict__ x,  // (n, D)
-                 int n, int B, int D, int k,
-                 int* __restrict__ out_ids,    // (B, k)
-                 float* __restrict__ out_d) {  // (B, k)
+template <typename T>
+__device__ __forceinline__ void count_body(const T* __restrict__ q,  // (B, D)
+                                           const T* __restrict__ x,  // (n, D)
+                                           int n, int B, int D, int k,
+                                           int* __restrict__ out_ids,    // (B, k)
+                                           float* __restrict__ out_d) {  // (B, k)
   extern __shared__ float4 smem4[];
   const Tile s = tile_layout(reinterpret_cast<float*>(smem4), D, k);
   const int tid = threadIdx.x;
@@ -259,12 +301,12 @@ flat_topk_kernel(const __nv_bfloat16* __restrict__ q,  // (B, D)
 // Fixed mode (K3): per tile and per query exactly k passes, each a warp
 // argmin by (d, id) over the tile's CT candidates, an insertion when it
 // beats the list's last entry, and the winner knocked out.  No pre-count.
-__global__ void __launch_bounds__(THREADS)
-flat_topk_fixed_kernel(const __nv_bfloat16* __restrict__ q,  // (B, D)
-                       const __nv_bfloat16* __restrict__ x,  // (n, D)
-                       int n, int B, int D, int k,
-                       int* __restrict__ out_ids,    // (B, k)
-                       float* __restrict__ out_d) {  // (B, k)
+template <typename T>
+__device__ __forceinline__ void fixed_body(const T* __restrict__ q,  // (B, D)
+                                           const T* __restrict__ x,  // (n, D)
+                                           int n, int B, int D, int k,
+                                           int* __restrict__ out_ids,    // (B, k)
+                                           float* __restrict__ out_d) {  // (B, k)
   extern __shared__ float4 smem4[];
   const Tile s = tile_layout(reinterpret_cast<float*>(smem4), D, k);
   const int tid = threadIdx.x;
@@ -317,25 +359,36 @@ flat_topk_fixed_kernel(const __nv_bfloat16* __restrict__ q,  // (B, D)
   store_lists(s, q0, B, k, tid, out_ids, out_d);
 }
 
+// One named kernel per mode and element type (the build report lists
+// each by name).
+#define FLAT_KERNEL(NAME, BODY, T)                                                   \
+  __global__ void __launch_bounds__(THREADS)                                         \
+      NAME(const T* __restrict__ q, const T* __restrict__ x, int n, int B, int D, int k, \
+           int* __restrict__ out_ids, float* __restrict__ out_d) {                   \
+    BODY<T>(q, x, n, B, D, k, out_ids, out_d);                                       \
+  }
+FLAT_KERNEL(flat_topk_kernel, count_body, __nv_bfloat16)
+FLAT_KERNEL(flat_topk_s8_kernel, count_body, int8_t)
+FLAT_KERNEL(flat_topk_fixed_kernel, fixed_body, __nv_bfloat16)
+FLAT_KERNEL(flat_topk_fixed_s8_kernel, fixed_body, int8_t)
+#undef FLAT_KERNEL
+
 int smem_bytes(int D, int k) {
   return (int)sizeof(float) * (D * QB + DK * CT + QB * CT + QB + CT + QB * k) +
          (int)sizeof(int) * QB * k;
 }
 
-using FlatKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, int, int, int, int,
-                            int*, float*);
-
-int launch(FlatKernel kernel, const void* q, const void* x, int n, int B, int D, int k,
-           void* out_ids, void* out_d, void* stream) {
+template <typename T>
+int launch(void (*kernel)(const T*, const T*, int, int, int, int, int*, float*), const void* q,
+           const void* x, int n, int B, int D, int k, void* out_ids, void* out_d, void* stream) {
   if (k < 1 || k > KMAX || D % DK != 0) return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(D, k);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + QB - 1) / QB);
-  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)x, n, B, D, k, (int*)out_ids,
-      (float*)out_d);
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>((const T*)q, (const T*)x, n, B, D, k,
+                                                        (int*)out_ids, (float*)out_d);
   return (int)cudaGetLastError();
 }
 
@@ -356,6 +409,18 @@ int expann_flat_topk_bf16(const void* q, const void* x, int n, int B, int D, int
 int expann_flat_topk_fixed_bf16(const void* q, const void* x, int n, int B, int D, int k,
                                 void* out_ids, void* out_d, void* stream) {
   return launch(flat_topk_fixed_kernel, q, x, n, B, D, k, out_ids, out_d, stream);
+}
+
+// K2-s8 and K3-s8: int8 codes for q and x; same contract (D % 64 == 0
+// keeps every row 16-byte aligned).
+int expann_flat_topk_s8(const void* q, const void* x, int n, int B, int D, int k, void* out_ids,
+                        void* out_d, void* stream) {
+  return launch(flat_topk_s8_kernel, q, x, n, B, D, k, out_ids, out_d, stream);
+}
+
+int expann_flat_topk_fixed_s8(const void* q, const void* x, int n, int B, int D, int k,
+                              void* out_ids, void* out_d, void* stream) {
+  return launch(flat_topk_fixed_s8_kernel, q, x, n, B, D, k, out_ids, out_d, stream);
 }
 
 const char* expann_error_string(int code) {

@@ -41,11 +41,24 @@ class GraphIndex:
     adj_bottom: torch.Tensor  # (N + 1, R0) int32, sentinel N
     layers: Tuple[UpperLayer, ...]  # layer 1 .. max_layer - 1 (may be empty)
     starting_vertex: int
+    # uint8 codes of the compressed beam (ops/quantize.py), attached when
+    # use_compression is on
+    codes: Optional[torch.Tensor] = None  # (N + 1, D_pad) uint8
+    code_norms: Optional[torch.Tensor] = None  # (N + 1,) f32, +inf at N
+    # affine parameters of "ranged" codes; None for "simple" (cast) codes
+    quant_scale: Optional[torch.Tensor] = None  # () f32
+    quant_offset: Optional[torch.Tensor] = None  # () f32
     # packed-neighbour serving layout (ops/packed.py; derived from
     # adj_bottom on first query, never persisted)
-    packed: Optional[torch.Tensor] = None  # (N + 1, RS, D_pad) bf16
+    packed: Optional[torch.Tensor] = None  # (N + 1, RS, D_pad) bf16 or int8
     packed_norms: Optional[torch.Tensor] = None  # (N + 1, R_tile) f32
     packed_ids: Optional[torch.Tensor] = None  # (N + 1, R_tile) int32
+    # with int8 blocks (build_packed_i8): the code corpus for entry-point
+    # scoring and the query transform into code space
+    packed_codes: Optional[torch.Tensor] = None  # (N + 1, D_pad) int8
+    packed_code_norms: Optional[torch.Tensor] = None  # (N + 1,) f32, +inf at N
+    packed_center: Optional[torch.Tensor] = None  # (D_pad,) f32
+    packed_scale: Optional[torch.Tensor] = None  # () f32
     # members of the largest upper layer (dense entry-seed scan,
     # models/search.fused_query_batch), sentinel-padded to a multiple of 128
     entry_members: Optional[torch.Tensor] = None  # (n_l_pad,) int32
@@ -58,6 +71,11 @@ class GraphIndex:
     @property
     def sentinel(self) -> int:
         return self.vectors.shape[0] - 1
+
+    def drop_packed(self) -> None:
+        """Forget the packed layout (it is rebuilt on the next query)."""
+        self.packed = self.packed_norms = self.packed_ids = None
+        self.packed_codes = self.packed_code_norms = self.packed_center = self.packed_scale = None
 
 
 def make_corpus(x: np.ndarray, device) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -41,7 +41,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "expann_flat_topk_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "expann_flat_topk_fixed_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "expann_flat_topk_s8": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "expann_flat_topk_fixed_s8": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "expann_fused_search_bf16": [_P] * 10 + [_I] * 10 + [_P],
+    "expann_fused_search_s8": [_P] * 10 + [_I] * 10 + [_P],
     "expann_flat_topk_smem_bytes": [_I, _I],
     "expann_fused_search_smem_bytes": [_I] * 5,
     "expann_packed_score_bf16": [_P] * 7 + [_I] * 7 + [_P],

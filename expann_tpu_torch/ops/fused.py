@@ -2,8 +2,10 @@
 expann_tpu/ops/pallas_fused.py ``fused_search``, merge ``"topt"``).
 
 The whole traversal of one query runs in one kernel launch
-(``csrc/fused_search.cu``); ``fused_search_plain`` is the same function in
-plain PyTorch, batched over queries, and runs on CPU tensors.
+(``csrc/fused_search.cu``: ``fused_search_kernel`` over bf16 blocks,
+``fused_search_s8_kernel`` over s8 code blocks); ``fused_search_plain`` is
+the same function in plain PyTorch, batched over queries, and runs on CPU
+tensors.
 
 Semantics, per query: the beam holds EF (distance, id) entries, the first
 ``ef`` of them live.  Each iteration selects the ``expand`` best unexpanded
@@ -11,7 +13,10 @@ live entries by (d, lane) and marks them expanded; the query stops when
 the best one is worse than the live worst or nothing finite is left
 (src/antitopo_engine.h:588-590), or after ``max_iters`` iterations.  Each
 selected node's packed block is scored as
-``(|x|^2 + |q|^2) - 2 bf16(q).x`` (f32 sums, clamped at 0); per node in
+``(|x|^2 + |q|^2) - 2 bf16(q).x`` (f32 sums, clamped at 0); on int8
+blocks the query is in code space (integer-valued f32, ``build_packed_i8``'s
+transform), ``q.x`` is taken on its int8 cast and every distance is an
+exact integer, so kernel and plain version agree bit for bit; per node in
 selection order its best ``TOPT = ceil(cand / expand)`` by (d, row) are
 offered in ascending order, skipping ids already in the beam (checked
 against the beam as it stands when that node's turn starts), each
@@ -137,11 +142,13 @@ def fused_search_cuda(
     topt: int,
     max_iters: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the fused traversal kernel (``csrc/fused_search.cu``)."""
+    """Launch the fused traversal kernel (``csrc/fused_search.cu``): K1 on
+    bf16 blocks, K1-s8 on int8 blocks."""
     device = packed.device
     q = q.float().contiguous()
+    s8 = packed.dtype == torch.int8
     for t, name, dtype in (
-        (packed, "packed", torch.bfloat16),
+        (packed, "packed", torch.int8 if s8 else torch.bfloat16),
         (packed_norms, "packed_norms", torch.float32),
         (packed_ids, "packed_ids", torch.int32),
         (q, "q", torch.float32),
@@ -157,7 +164,7 @@ def fused_search_cuda(
         raise ValueError("packed_norms / packed_ids must be (N+1, R_tile) with R_tile >= RS")
     if q.shape != (B, D) or beam_ids0.shape != (B, EF):
         raise ValueError(f"q {tuple(q.shape)} / beam {tuple(beam_ids0.shape)} do not match ({B}, {D}) / ({B}, {EF})")
-    if D % 8 or RS % 16 or RS > MAX_RS or not 1 <= ef <= EF or not 1 <= topt <= RS:
+    if D % (16 if s8 else 8) or RS % 16 or RS > MAX_RS or not 1 <= ef <= EF or not 1 <= topt <= RS:
         raise ValueError(f"unsupported shape: D={D} RS={RS} ef={ef} EF={EF} topt={topt}")
     obi = torch.empty((B, EF), dtype=torch.int32, device=device)
     obd = torch.empty((B, EF), dtype=torch.float32, device=device)
@@ -165,24 +172,24 @@ def fused_search_cuda(
     iters = torch.empty((B,), dtype=torch.int32, device=device)
     if B == 0:
         return obi, obd, ncomp, iters
-    lib = _kernels.library()
-    code = lib.expann_fused_search_bf16(
+    name = "fused_search_s8" if s8 else "fused_search"
+    code = getattr(_kernels.library(), f"expann_{name}" if s8 else f"expann_{name}_bf16")(
         packed.data_ptr(), packed_norms.data_ptr(), packed_ids.data_ptr(), q.data_ptr(),
         beam_d0.data_ptr(), beam_ids0.data_ptr(), obi.data_ptr(), obd.data_ptr(),
         ncomp.data_ptr(), iters.data_ptr(),
         B, D, RS, Rt, EF, int(ef), int(max_iters), E, int(topt), n1 - 1,
         _kernels.stream_ptr(device),
     )
-    _kernels.check(code, "fused_search")
-    _kernels.launches["fused_search"] += 1
+    _kernels.check(code, name)
+    _kernels.launches[name] += 1
     return obi, obd, ncomp, iters
 
 
 def fused_search(
-    packed: torch.Tensor,  # (N+1, RS, D) bf16 (f32 accepted on CPU)
+    packed: torch.Tensor,  # (N+1, RS, D) bf16 or int8 (f32 accepted on CPU)
     packed_norms: torch.Tensor,  # (N+1, R_tile) f32, +inf at pad slots
     packed_ids: torch.Tensor,  # (N+1, R_tile) int32
-    q: torch.Tensor,  # (B, D) f32
+    q: torch.Tensor,  # (B, D) f32; code space for int8 blocks
     beam_d0: torch.Tensor,  # (B, EF) f32, +inf padding
     beam_ids0: torch.Tensor,  # (B, EF) int32, sentinel padding
     ef: int,

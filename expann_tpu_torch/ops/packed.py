@@ -1,14 +1,16 @@
 """Packed-neighbour serving layout and the per-iteration block scorer
-(counterpart of expann_tpu/ops/pallas_beam.py ``build_packed`` and
-``packed_score``).
+(counterpart of expann_tpu/ops/pallas_beam.py ``build_packed``,
+``build_packed_i8`` and ``packed_score``).
 
 Each node's neighbour vectors are stored contiguously, so one expansion
 reads one ``(RS, D)`` block instead of RS scattered rows:
 
-  * ``packed`` ``(N+1, RS, D)`` in the serving dtype (bf16; f32 for tests),
-    ``RS = roundup(R, 16)``;
-  * ``packed_norms`` ``(N+1, R_tile)`` f32 — the neighbours' squared norms,
-    +inf at sentinel and pad slots so padding masks itself;
+  * ``packed`` ``(N+1, RS, D)`` in the serving dtype (bf16, f32 for tests,
+    or centered s8 codes from ``build_packed_i8``), ``RS = roundup(R, 16)``
+    (32 for s8);
+  * ``packed_norms`` ``(N+1, R_tile)`` f32 — the neighbours' squared norms
+    (code-space norms for s8), +inf at sentinel and pad slots so padding
+    masks itself;
   * ``packed_ids`` ``(N+1, R_tile)`` int32 — the neighbour ids, sentinel
     padded; ``R_tile = roundup(RS, 128)`` as in the JAX layout.
 
@@ -30,10 +32,41 @@ import torch
 
 from expann_tpu_torch.ops import _kernels
 
-def packed_widths(r: int) -> Tuple[int, int]:
-    """``(RS, R_tile)`` for an adjacency of width ``r``."""
-    rs = r + ((-r) % 16)
+def packed_widths(r: int, align: int = 16) -> Tuple[int, int]:
+    """``(RS, R_tile)`` for an adjacency of width ``r``; blocks of s8 codes
+    align RS to 32 (pallas_beam.py:348), bf16 ones to 16."""
+    rs = r + ((-r) % align)
     return rs, rs + ((-rs) % 128)
+
+
+def packed_bytes(np1: int, r: int, d: int, dtype: str) -> int:
+    """Device bytes of the packed blocks of ``np1`` nodes of width ``r``:
+    ``"i8"`` (1 B per element, RS aligned to 32) or ``"bf16"``."""
+    if dtype == "i8":
+        return np1 * packed_widths(r, 32)[0] * d
+    return np1 * packed_widths(r)[0] * d * 2
+
+
+def pack_blocks(
+    rows: torch.Tensor,  # (N+1, D) corpus or codes, sentinel row last
+    row_norms: torch.Tensor,  # (N+1,) their squared norms, +inf at N
+    adj: torch.Tensor,  # (N+1, R) int32, sentinel N padding
+    align: int = 16,
+    dtype: torch.dtype | None = None,
+    chunk: int = 32768,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(packed, packed_norms, packed_ids)`` of ``rows`` (cast to
+    ``dtype``) with RS aligned to ``align``, gathered in row chunks so a
+    gather never holds more than ``chunk * RS * D`` elements."""
+    np1, r = adj.shape
+    sentinel = np1 - 1
+    rs, r_tile = packed_widths(r, align)
+    ids = torch.full((np1, r_tile), sentinel, dtype=torch.int32, device=adj.device)
+    ids[:, :r] = adj
+    packed = torch.empty((np1, rs, rows.shape[1]), dtype=dtype or rows.dtype, device=rows.device)
+    for s in range(0, np1, chunk):
+        packed[s : s + chunk] = rows[ids[s : s + chunk, :rs].long()].to(packed.dtype)
+    return packed, row_norms[ids.long()], ids
 
 
 def build_packed(
@@ -46,15 +79,39 @@ def build_packed(
     """Materialize ``(packed, packed_norms, packed_ids)`` from a built graph,
     in row chunks so the f32 gather never exceeds ``chunk * RS * D * 4``
     bytes."""
-    np1, r = adj.shape
-    sentinel = np1 - 1
-    rs, r_tile = packed_widths(r)
-    ids = torch.full((np1, r_tile), sentinel, dtype=torch.int32, device=adj.device)
-    ids[:, :r] = adj
-    packed = torch.empty((np1, rs, vectors.shape[1]), dtype=dtype, device=vectors.device)
-    for s in range(0, np1, chunk):
-        packed[s : s + chunk] = vectors[ids[s : s + chunk, :rs].long()].to(dtype)
-    return packed, norms[ids.long()], ids
+    return pack_blocks(vectors, norms, adj, 16, dtype, chunk)
+
+
+def build_packed_i8(
+    vectors: torch.Tensor,  # (N+1, D) f32 corpus with sentinel row
+    adj: torch.Tensor,  # (N+1, R) int32, sentinel N padding
+    chunk: int = 32768,
+):
+    """The packed layout over CENTERED s8 codes: half the bytes per
+    expansion of the bf16 layout, scored exactly in code space (|code| <=
+    127 and D <= 512 keep integer distances below 2^24).  Centering by the
+    corpus mean and one absmax scale is the ``quantize_corpus_i8`` recipe.
+
+    Returns ``(packed, packed_norms, packed_ids, codes, code_norms, center,
+    scale)``: int8 blocks ``(N+1, RS, D)`` with ``RS = roundup(R, 32)``,
+    their CODE-SPACE norms and ids ``(N+1, R_tile)`` (+inf / sentinel at
+    pad slots), the code corpus ``(N+1, D)`` int8 with its norms ``(N+1,)``
+    (+inf at the sentinel) for entry-point scoring, and the f32 query
+    transform ``qc = clip(round((q - center) * scale), -127, 127)``:
+    ``center`` ``(D,)`` and ``scale`` ``()``.  The mean is a device f32
+    mean, as in the JAX package; its last bit may differ there, so tests
+    that need the JAX codes carry them across (utils/persist.py)."""
+    sentinel = vectors.shape[0] - 1
+    vf = vectors.float()
+    center = vf[:sentinel].mean(dim=0)
+    absmax = torch.clamp_min(torch.max(torch.abs(vf[:sentinel] - center)), 1e-30)
+    scale = 127.0 / absmax
+    codes = torch.clamp(torch.round((vf - center) * scale), -127, 127).to(torch.int8)
+    cf = codes.float()
+    code_norms = torch.sum(cf * cf, dim=1)
+    code_norms[sentinel] = float("inf")
+    packed, packed_norms, packed_ids = pack_blocks(codes, code_norms, adj, 32, chunk=chunk)
+    return packed, packed_norms, packed_ids, codes, code_norms, center, scale
 
 
 def packed_score_plain(

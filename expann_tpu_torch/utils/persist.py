@@ -16,6 +16,21 @@ import torch
 from expann_tpu_torch.models.graph import GraphIndex, UpperLayer
 
 FORMAT_VERSION = 1
+# derived arrays ``graph_from_numpy`` also takes (never persisted): uint8
+# codes, the s8 packed layout and its query transform, each with its dtype
+DERIVED = {
+    "codes": np.uint8,
+    "code_norms": np.float32,
+    "quant_scale": np.float32,
+    "quant_offset": np.float32,
+    "packed": np.int8,
+    "packed_norms": np.float32,
+    "packed_ids": np.int32,
+    "packed_codes": np.int8,
+    "packed_code_norms": np.float32,
+    "packed_center": np.float32,
+    "packed_scale": np.float32,
+}
 
 
 def graph_to_numpy(graph: GraphIndex) -> Dict[str, np.ndarray]:
@@ -34,7 +49,9 @@ def graph_to_numpy(graph: GraphIndex) -> Dict[str, np.ndarray]:
 
 def graph_from_numpy(arrays: Dict[str, np.ndarray], device) -> GraphIndex:
     """Rebuild a GraphIndex on ``device`` from the persisted arrays (keys
-    as written by ``save_index`` of either package)."""
+    as written by ``save_index`` of either package), plus any ``DERIVED``
+    arrays given, so that a graph can carry another package's codes and s8
+    layout (``packed_ids`` as plain int32 ids)."""
 
     def dev(name, dtype):
         return torch.from_numpy(np.array(arrays[name], dtype=dtype)).to(device)
@@ -50,6 +67,7 @@ def graph_from_numpy(arrays: Dict[str, np.ndarray], device) -> GraphIndex:
         adj_bottom=dev("adj_bottom", np.int32),
         layers=layers,
         starting_vertex=int(arrays["starting_vertex"]),
+        **{name: dev(name, dtype) for name, dtype in DERIVED.items() if arrays.get(name) is not None},
     )
 
 

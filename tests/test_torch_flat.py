@@ -158,5 +158,17 @@ def test_fused_engine_recall():
 
 
 def test_unported_mode_raises():
-    with pytest.raises(NotImplementedError):
-        BruteForceEngine(mode="fused_i8", device="cpu")
+    """``fused_i8`` (unported before) now serves; unknown values of the
+    engine's options still raise."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((300, 32)).astype(np.float32)
+    q = rng.standard_normal((12, 32)).astype(np.float32)
+    eng = BruteForceEngine(mode="fused_i8", device="cpu")
+    eng.store_many_vectors(x)
+    eng.build()
+    assert eng._x_fused.dtype == torch.int8
+    ids = eng.query_k_batch(q, 5)
+    assert ids.shape == (12, 5) and all(len(set(r.tolist())) == 5 for r in ids)
+    for kw in (dict(mode="fused_i4"), dict(rerank_store="f16"), dict(query_wire="i4"), dict(topk_mode="pooled")):
+        with pytest.raises(ValueError):
+            BruteForceEngine(device="cpu", **{"mode": "fused_i8", **kw})

@@ -191,6 +191,13 @@ def test_engine_self_queries_index_file_and_unported_options(data, tmp_path):
     assert not again.cfg.write_index and again.dim == D
     eng.set_ef_search(40)
     np.testing.assert_array_equal(again.query_k_batch(q, K), eng.query_k_batch(q, K))
+    # the quantized options (unported before) now serve the same index;
+    # unknown values still raise
     for kw in (dict(use_compression=True), dict(packed_dtype="i8"), dict(query_wire="i8")):
-        with pytest.raises(NotImplementedError):
+        opt = AntitopoEngine(config=AntitopoConfig(**{**cfg, "write_index": False, **kw}), device="cpu")
+        opt.build()
+        assert [opt.query_k(x[i], 5)[0] for i in probe] == probe
+        assert opt.query_k_batch(q, K).shape == (q.shape[0], K)
+    for kw in (dict(packed_dtype="i4"), dict(query_wire="f32"), dict(quant_mode="log")):
+        with pytest.raises(ValueError):
             AntitopoEngine(config=AntitopoConfig(**kw), device="cpu")

@@ -15,7 +15,7 @@ from expann_tpu_torch.models.build import BuildConfig, build_index
 from expann_tpu_torch.models.search import query_batch
 from expann_tpu_torch.ops import _kernels
 from expann_tpu_torch.ops.fused import fused_search, fused_search_plain, topt_for
-from expann_tpu_torch.ops.packed import build_packed, packed_score, packed_score_plain
+from expann_tpu_torch.ops.packed import build_packed, build_packed_i8, packed_score, packed_score_plain
 from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain
 from expann_tpu_torch.utils.persist import graph_from_numpy, graph_to_numpy
 
@@ -32,7 +32,8 @@ def dev():
 def test_kernels_build(dev):
     lib = _kernels.library()
     report = _kernels.build_report()
-    for name in ("flat_topk_kernel", "flat_topk_fixed_kernel", "fused_search_kernel", "packed_score_kernel"):
+    for name in ("flat_topk_kernel", "flat_topk_fixed_kernel", "fused_search_kernel", "packed_score_kernel",
+                 "flat_topk_s8_kernel", "flat_topk_fixed_s8_kernel", "fused_search_s8_kernel"):
         assert name in report
     assert lib.expann_flat_topk_smem_bytes(128, 10) > 0
 
@@ -56,6 +57,29 @@ def test_flat_topk_matches_plain(dev, n, B, k, mode):
     assert float(diff.float().mean()) < 0.01
     if k > n:
         assert bool((ids[:, n:] == -1).all()) and bool(torch.isinf(d[:, n:]).all())
+
+
+@pytest.mark.parametrize("mode", ["count", "fixed"])
+@pytest.mark.parametrize("n,B,k", [(5000, 301, 30), (3001, 129, 1), (777, 71, 128), (64, 5, 100)])
+def test_flat_topk_s8_identical_to_plain(dev, n, B, k, mode):
+    """K2-s8 / K3-s8 against the plain version on int8 codes over the full
+    range, with duplicated rows (exact integer ties): distances are exact
+    integers on both sides and ties go by id, so ids and distances are
+    identical."""
+    rng = np.random.default_rng(n + k)
+    x = rng.integers(-127, 128, (n, 128)).astype(np.int8)
+    x[n // 2 : n // 2 + n // 8] = x[: n // 8]
+    q = rng.integers(-127, 128, (B, 128)).astype(np.int8)
+    q[: B // 3] = x[n // 4 : n // 4 + B // 3]
+    xt, qt = torch.from_numpy(x).to(dev), torch.from_numpy(q).to(dev)
+    name = "flat_topk_s8" if mode == "count" else "flat_topk_fixed_s8"
+    before = _kernels.launches[name]
+    ids, d = flat_topk(qt, xt, k, mode=mode)
+    assert _kernels.launches[name] == before + 1
+    pids, pd = flat_topk_plain(qt, xt, k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, pd), float((d - pd).abs().nan_to_num().max())
+    assert torch.equal(ids, pids), int((ids != pids).sum())
 
 
 def _random_graph(dev, n, R, d, seed):
@@ -103,6 +127,38 @@ def test_fused_search_matches_plain(dev, expand, cand, R, d, EF, ef):
         real = row[row < n].tolist()
         assert len(set(real)) == len(real)
     assert bool((iters >= 1).all())
+
+
+@pytest.mark.parametrize(
+    "expand,R,d,EF,ef", [(2, 128, 128, 128, 120), (1, 20, 128, 128, 100), (2, 30, 128, 128, 60), (2, 120, 256, 256, 200)]
+)
+def test_fused_search_s8_identical_to_plain(dev, expand, R, d, EF, ef):
+    """K1-s8 against its plain version on the s8 layout (RS 32 or 128) from
+    code-space seed beams at an odd batch: every distance is an exact
+    integer and both break ties by (d, lane), so the beams, distances,
+    distance counts and iteration counts are identical."""
+    n, B = 4000, 257
+    vecs, norms, adj, rng = _random_graph(dev, n, R, d, seed=R + expand)
+    packed, pn, pi, codes, cn, center, scale = build_packed_i8(vecs, adj)
+    assert packed.dtype == torch.int8 and packed.shape[1] == (32 if R <= 32 else 128)
+    q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32)).to(dev)
+    qk = torch.clamp(torch.round((q - center) * scale), -127, 127)
+    seeds = torch.from_numpy(rng.integers(0, n, size=(B,)).astype(np.int32)).to(dev)
+    bd0 = torch.full((B, EF), float("inf"), device=dev)
+    bi0 = torch.full((B, EF), n, dtype=torch.int32, device=dev)
+    bi0[:, 0] = seeds
+    bd0[:, 0] = ((qk - codes[seeds.long()].float()) ** 2).sum(1)
+    before = _kernels.launches["fused_search_s8"]
+    ids, dist, ncomp, iters = fused_search(packed, pn, pi, qk, bd0, bi0, ef, expand=expand, cand=8)
+    assert _kernels.launches["fused_search_s8"] == before + 1
+    topt = topt_for(8, expand, packed.shape[1])
+    pids, pdist, pncomp, piters = fused_search_plain(packed, pn, pi, qk, bd0, bi0, ef, expand, topt, 8 * ef + 16)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, pids), int((ids != pids).any(1).sum())
+    assert torch.equal(dist, pdist)
+    assert torch.equal(ncomp, pncomp) and torch.equal(iters, piters)
+    real = dist[ids < n]
+    assert bool((real == torch.round(real)).all())
 
 
 @pytest.mark.parametrize("topt", [0, 8])
