@@ -28,7 +28,8 @@ Phases, one line each:
   8. times         graph and flat QPS on 65536 fresh queries, per-call latency
                    at B = 1, 8, 32 on both graph routes (host clock, numpy in
                    and out), and kernel / plain / library-chain times (CUDA
-                   events) at the paths' shapes, beside each kernel's bound;
+                   events, utils/profiling.event_ms) at the paths' shapes,
+                   beside each kernel's bound;
   9. canonical_quantized  quantized serving on the canonical config: the flat
                    engine mode="fused_i8" on both query wires and in both
                    top-k modes, then bench.py's flow on the graph engine built
@@ -43,7 +44,26 @@ Phases, one line each:
  12. times (quantized)  QPS of the quantized paths, and K1-s8, K2-s8, K3-s8
                    beside their plain versions, bounds and library chain;
  13. launches      kernel launches counted on each path: the counts are set to
-                   0 just before a path and read just after.
+                   0 just before a path and read just after;
+ 14. probe_fused   P1 (expann_tpu_torch/tools/probe_fused.py) against its
+                   plain version: the bulk copy by an in-kernel index and the
+                   data-dependent loop, identical;
+ 15. probe_gather  P2 against its plain version on all 33001 rows at every
+                   ring of the sweep (R 16-128 x NBUF 2, 4, 8) on its 2 GiB
+                   tables, the refusal of the R=128, NBUF=8 ring, and the
+                   time at R=128, NBUF=4;
+ 16. probe_step    K1 on P3's companion layout against its plain version at
+                   both iteration caps (1024 queries); P3 against its plain
+                   version at every feature;
+ 17. probe_lanes   P4 against its plain version at every mode;
+     then the probes path, counts reset just before it: the tools' sweeps
+     (P1 once; P2's block-gather GB/s by R x NBUF and the library chain's;
+     P3's µs per step by feature and K1's ms at 24 and 96 iterations with
+     its slope; P4's ns per step by mode from ITERS 256 and 512), with the
+     probe kernels' times beside their plain versions and bounds;
+ 18. trace         tools/perf_trace's profile of one 8192-query call of the
+                   graph engine on s8 blocks (after phase 9's flip) at
+                   ef=100: wall ms, device µs, the top kernels by device time.
 Then the script's run time, the kernel summary as JSON, the card's name
 and power limit as nvidia-smi prints them, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -58,7 +78,6 @@ from __future__ import annotations
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -88,7 +107,7 @@ D_ATOL, D_RTOL = 2e-3, 1e-5
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, and the
 # tensor-core operations/s of each operand type
 HBM_BPS = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}  # f32: outside the tensor cores
 QUANT_EFS = (100, 110, 120)  # bench.py:306 (s8 blocks)
 WIRE_EFS = (110, 120)  # bench.py:329 (i8 query wire)
 FLAT_S8_KS = (30, 100)  # 30: fused_i8's scan at k=10 (rerank_mult=3)
@@ -108,23 +127,10 @@ def recall(ids: np.ndarray, gt: np.ndarray) -> float:
     return float(np.mean([len(set(a[:k].tolist()) & set(b.tolist())) / k for a, b in zip(ids, gt)]))
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds per call of ``fn`` by CUDA events, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bound(nbytes: float, ops: float, dtype: str = "bf16") -> tuple:
     """The least time the card could take, in ms, and what sets it: the
     bytes over HBM bandwidth or the operations over the tensor peak of the
-    operands' type (bf16 or int8)."""
+    operands' type (bf16 or int8 tensor rates, or f32 outside them)."""
     tb, to = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[dtype] * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
@@ -132,7 +138,11 @@ def bound(nbytes: float, ops: float, dtype: str = "bf16") -> tuple:
 KERNEL_NAMES = (
     "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel", "flat_topk_kernel", "flat_topk_s8_kernel",
     "fused_search_kernel", "fused_search_s8_kernel", "packed_score_kernel",
+    "probe_fused_kernel", "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel",
 )
+# P2's comparison: steps, odd, at least 4 rings of NBUF=8 on each block of
+# the grid (at most 8 blocks of 256 threads per SM, 132 SMs)
+PROBE_G = 33001
 
 
 def ptxas_summary(report: str) -> dict:
@@ -229,6 +239,7 @@ def quantized_phases(torch, dev, ds, graph, card: str, topt: int) -> dict:
     from expann_tpu_torch.ops import _kernels
     from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain
     from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_fixed_cuda, flat_topk_plain, quantize_query_i8
+    from expann_tpu_torch.utils.profiling import event_ms
 
     launches, times, failures = {}, {}, []
 
@@ -353,14 +364,14 @@ def quantized_phases(torch, dev, ds, graph, card: str, topt: int) -> dict:
         return torch.topk((qn8[:, None] + xn8[None, :]) - 2 * torch._int_mm(q8, x8.T), k8, dim=1, largest=False)
 
     try:
-        lib_ms = cuda_ms(torch, flat8_chain, reps=3)
+        lib_ms = event_ms(flat8_chain, reps=3)
     except RuntimeError as e:  # a yardstick only: report it missing, keep going
         lib_ms = None
         phase("times", library="torch._int_mm + topk", unavailable=repr(str(e).splitlines()[0][:120]))
-    plain_ms = cuda_ms(torch, lambda: flat_topk_plain(q8, x8, k8), reps=2)
+    plain_ms = event_ms(lambda: flat_topk_plain(q8, x8, k8), reps=2)
     fb = bound(N * D + FLAT_CHUNK * D + FLAT_CHUNK * k8 * 8, 2.0 * FLAT_CHUNK * N * D, "int8")
     for name, fn in (("flat_topk_s8", flat_topk_cuda), ("flat_topk_fixed_s8", flat_topk_fixed_cuda)):
-        ms = cuda_ms(torch, lambda: fn(q8, x8, k8), reps=5)
+        ms = event_ms(lambda: fn(q8, x8, k8), reps=5)
         times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=fb[0], bound_by=fb[1])
         phase("times", kernel=name, B=FLAT_CHUNK, n=N, k=k8, ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
               library_ms="null" if lib_ms is None else f"{lib_ms:.3f}", bound_ms=f"{fb[0]:.4f}", bound_by=fb[1],
@@ -371,8 +382,8 @@ def quantized_phases(torch, dev, ds, graph, card: str, topt: int) -> dict:
     qt = torch.from_numpy(rng.standard_normal((Bq, D)).astype(np.float32)).to(torch.bfloat16).to(dev).float()
     bd0, bi0, _ = entry_beam(g, qt, EF, GRAPH_CFG["entry_seeds"])
     targs = (*args, kernel_query(g, qt), bd0, bi0, ef, GRAPH_CFG["query_expand"], topt, 8 * ef + 16)
-    ms = cuda_ms(torch, lambda: fused_search_cuda(*targs), reps=5)
-    plain_ms = cuda_ms(torch, lambda: fused_search_plain(*targs), reps=1)
+    ms = event_ms(lambda: fused_search_cuda(*targs), reps=5)
+    plain_ms = event_ms(lambda: fused_search_plain(*targs), reps=1)
     # bytes the traversal must read: per expansion one RS x D s8 block plus RS
     # norms and RS ids; queries and beams in and out
     expansions = int(fused_search_cuda(*targs)[2].sum()) / rs
@@ -384,6 +395,203 @@ def quantized_phases(torch, dev, ds, graph, card: str, topt: int) -> dict:
 
     check(not failures, "; ".join(failures))
     return dict(launches=launches, times=times, fused_s8_err=fused_s8_err)
+
+
+def probe_phases(torch, dev, card: str) -> dict:
+    """Phases 14-17: each probe kernel (expann_tpu_torch/tools/) against its
+    plain version at the tools' shapes, then the probes path with the
+    launch counts reset just before it: the tools' own sweeps.  Returns the
+    path's launch counts, each kernel's largest error and times."""
+    from expann_tpu_torch.ops import _kernels
+    from expann_tpu_torch.ops.fused import fused_search, fused_search_plain, topt_for
+    from expann_tpu_torch.tools import perf_pallas_gather as pg
+    from expann_tpu_torch.tools import probe_fused as pf
+    from expann_tpu_torch.tools import probe_lanes as pl
+    from expann_tpu_torch.tools import probe_step_overhead as ps
+    from expann_tpu_torch.utils.profiling import event_ms
+
+    err, times = {}, {}
+
+    # ---- 14. P1 -------------------------------------------------------------
+    tab, x = pf.inputs(dev)
+    o, w = pf.probe_fused_cuda(tab, x)
+    po, pw = pf.probe_fused_plain(tab, x)
+    torch.cuda.synchronize()
+    err["probe_fused"] = max(float((o - po).abs().max()), float((w - pw).abs().max()))
+    phase("probe_fused", copied_entry=int(torch.argmin(x[0])) % 64, loop_count=int(pw[0, 0]),
+          identical=bool(torch.equal(o, po) and torch.equal(w, pw)))
+    check(torch.equal(o, po) and torch.equal(w, pw), f"probe_fused differs from its plain version ({err['probe_fused']})")
+    ms = event_ms(lambda: pf.probe_fused_cuda(tab, x), reps=200)
+    plain_ms = event_ms(lambda: pf.probe_fused_plain(tab, x), reps=5)
+    # one block: latency sets its time; the bytes it must move (one 4 KB
+    # entry, x, o and w) give the bound
+    pb = bound(4 * 4096, 0.0)
+    times["probe_fused"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=pb[0], bound_by=pb[1])
+    phase("probe_fused", us=f"{ms * 1e3:.3f}", plain_us=f"{plain_ms * 1e3:.1f}", bound_us=f"{pb[0] * 1e3:.5f}",
+          limited_by="latency", card=card)
+
+    # ---- 15. P2 -------------------------------------------------------------
+    # every ring of the sweep on the sweep's own 2 GiB tables, at a step count
+    # that wraps each block's ring several times; then the time at R=128,
+    # NBUF=4 (the shape named for the comparison) and G_LO steps
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((1, pg.D), generator=gen, device=dev).to(torch.bfloat16)
+    err["block_gather"] = 0.0
+    for R in pg.R_SWEEP:
+        nb = pg.table_blocks(R)
+        packed = torch.randn((nb, R, pg.D), generator=gen, device=dev, dtype=torch.bfloat16)
+        ids = torch.randint(0, nb, (PROBE_G,), generator=gen, device=dev, dtype=torch.int32)
+        ref = pg.block_gather_scores_plain(packed, ids, q)
+        for nbuf in pg.NBUF_SWEEP:
+            if (R, nbuf) == (128, 8):
+                refused = not pg.ring_fits(R, nbuf)
+                try:
+                    pg.block_gather_scores_cuda(packed, ids, q, nbuf)
+                except ValueError as e:
+                    refused = refused and "shared memory" in str(e)
+                else:
+                    refused = False
+                phase("probe_gather", R=R, nbuf=nbuf, refused=refused)
+                check(refused, "block_gather took an R=128, NBUF=8 ring (256 KB) without refusing it")
+                continue
+            check(pg.ring_fits(R, nbuf), f"block_gather: the R={R}, NBUF={nbuf} ring does not fit")
+            got = pg.block_gather_scores_cuda(packed, ids, q, nbuf)
+            torch.cuda.synchronize()
+            e = float((got - ref).abs().max())
+            err["block_gather"] = max(err["block_gather"], e)
+            worst = float(((got - ref).abs() / (1 + ref.abs())).max())
+            phase("probe_gather", R=R, nbuf=nbuf, G=PROBE_G, NB=nb, max_abs_err=f"{e:.3e}",
+                  worst_relative=f"{worst:.3e}")
+            check(worst <= 1e-4, f"block_gather (R={R}, nbuf={nbuf}) differs from its plain version: "
+                                 f"{worst} > 1e-4 (1 + |ref|)")
+            del got
+        del packed, ref
+    R, nbuf, G = 128, 4, pg.G_LO
+    nb = pg.table_blocks(R)
+    packed = torch.randn((nb, R, pg.D), generator=gen, device=dev, dtype=torch.bfloat16)
+    ids = torch.randint(0, nb, (G,), generator=gen, device=dev, dtype=torch.int32)
+    ms = event_ms(lambda: pg.block_gather_scores_cuda(packed, ids, q, nbuf), reps=10)
+    plain_ms = event_ms(lambda: pg.block_gather_scores_plain(packed, ids, q), reps=3)
+    lib_ms = event_ms(lambda: pg.library_chain(packed, ids, q), reps=10)
+    gb = bound(G * R * pg.D * 2 + G * R * 4 + G * 4, 2.0 * G * R * pg.D)
+    times["block_gather"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=gb[0], bound_by=gb[1])
+    phase("probe_gather", R=R, nbuf=nbuf, G=G, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+          bound_ms=f"{gb[0]:.4f}", bound_by=gb[1], card=card)
+    del packed
+
+    # K1 as P3's companion drives it, against its plain version on a slice
+    # of the companion's queries at both iteration caps
+    fargs = [t[:1024] if t.shape[0] == ps.B else t for t in ps.fused_inputs(dev)]
+    for cap in ps.FUSED_ITERS:
+        got = fused_search(*fargs, ef=120, expand=4, cand=32, max_iters=cap)
+        ref = fused_search_plain(*fargs, 120, 4, topt_for(32, 4, ps.RS), cap)
+        agree = ps.fused_agreement(got, ref, sentinel=ps.NODES)
+        phase("probe_step", fused_max_iters=cap, B=1024, **{k: f"{v:.6g}" for k, v in agree.items()})
+        check(agree["same_beams"] >= 0.95 and agree["overlap"] >= 0.99,
+              f"fused_search on the companion layout (cap {cap}): beams differ from the plain version: {agree}")
+        check(agree["dist_err"] <= D_ATOL + D_RTOL * agree["dist_max"],
+              f"fused_search on the companion layout (cap {cap}): distances differ: {agree}")
+        check(agree["same_iters"] >= 0.95 and abs(agree["iters_ratio"] - 1) <= 0.01
+              and abs(agree["ncomp_ratio"] - 1) <= 0.01,
+              f"fused_search on the companion layout (cap {cap}): iterations or distance counts differ: {agree}")
+    del fargs, got, ref
+
+    # ---- 16. P3 -------------------------------------------------------------
+    qs, bd0, blocks = ps.inputs(dev)
+    err["step_overhead"] = 0.0
+    for feat in ps.FEATURES:
+        got = ps.step_overhead_cuda(qs, bd0, blocks, feat)
+        ref = ps.step_overhead_plain(qs, bd0, blocks, feat)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        err["step_overhead"] = max(err["step_overhead"], e)
+        phase("probe_step", feature=feat or "base", B=ps.B, iters=ps.ITERS, max_abs_err=f"{e:.3e}",
+              identical=bool(torch.equal(got, ref)))
+        check(bool(torch.allclose(got, ref, rtol=1e-6, atol=1e-6)), f"step_overhead {feat!r} differs by {e}")
+    ms = event_ms(lambda: ps.step_overhead_cuda(qs, bd0, blocks, "dma"), reps=5)
+    plain_ms = event_ms(lambda: ps.step_overhead_plain(qs, bd0, blocks, "dma"), reps=2)
+    sb = bound(ps.step_bytes("dma"), 3.0 * ps.B * ps.EF * ps.ITERS, "f32")
+    times["step_overhead"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=sb[0], bound_by=sb[1])
+    phase("probe_step", feature="dma", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{sb[0]:.5f}",
+          bound_by=sb[1], card=card)
+    del qs, bd0, blocks
+
+    # ---- 17. P4 -------------------------------------------------------------
+    xl = pl.inputs(dev)
+    xl[:, 3] = xl[:, 70]  # ties with lane 3 for bcast
+    err["probe_lanes"] = 0.0
+    for mode in pl.MODES:
+        got = pl.lane_ops_cuda(xl, mode)
+        ref = pl.lane_ops_plain(xl, mode)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        err["probe_lanes"] = max(err["probe_lanes"], e)
+        phase("probe_lanes", mode=mode, rows=xl.shape[0], iters=pl.ITERS, max_abs_err=f"{e:.3e}",
+              identical=bool(torch.equal(got, ref)))
+        if mode in ("stage", "stage64", "bcast"):
+            check(bool(torch.equal(got, ref)), f"probe_lanes {mode} is not identical to its plain version ({e})")
+        else:
+            rtol = 1e-5 if mode == "matmul_cumsum" else 1e-6
+            check(bool(torch.allclose(got, ref, rtol=rtol, atol=1e-6)), f"probe_lanes {mode} differs by {e}")
+    ms = event_ms(lambda: pl.lane_ops_cuda(xl, "reduce"), reps=20)
+    plain_ms = event_ms(lambda: pl.lane_ops_plain(xl, "reduce"), reps=1)
+    rows = xl.shape[0]
+    # per element and step: its share of the row's min and one add
+    lb = bound(2 * rows * pl.W * 4, 2.0 * rows * pl.W * pl.ITERS, "f32")
+    times["probe_lanes"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=lb[0], bound_by=lb[1])
+    phase("probe_lanes", mode="reduce", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{lb[0]:.5f}",
+          bound_by=lb[1], card=card)
+    del xl
+
+    # ---- the probes path: the tools' sweeps, counts reset just before -----
+    _kernels.launches.clear()
+    p1 = pf.main(dev)
+    gather = pg.sweep(dev, log=lambda line: None)
+    steps = [ps.run(feat, dev) for feat in ps.FEATURES]
+    fused = ps.run_fused(dev)
+    lanes = [pl.run(mode, dev) for mode in pl.MODES]
+    launches = dict(_kernels.launches)
+    check(p1["ok_dma"] and p1["ok_while"], f"probe_fused's own check failed: {p1}")
+    for r in gather:
+        if r["launchable"]:
+            phase("probe_gather", R=r["R"], nbuf=r["nbuf"], block_kb=f"{r['block_kb']:.0f}",
+                  gb_per_s=f"{r['gb_per_s']:.1f}", ns_per_block=f"{r['ns_per_block']:.3f}",
+                  hbm_share=f"{r['hbm_share']:.3f}", library_gb_per_s=f"{r['library_gb_per_s']:.1f}", card=card)
+        else:
+            phase("probe_gather", R=r["R"], nbuf=r["nbuf"], launchable=False)
+    check(sorted((r["R"], r["nbuf"], r["launchable"]) for r in gather)
+          == sorted((R, nb, (R, nb) != (128, 8)) for R in pg.R_SWEEP for nb in pg.NBUF_SWEEP),
+          "the sweep did not run every ring but R=128, NBUF=8, or did not refuse that one")
+    for r in steps:
+        phase("probe_step", feature=r["feat"] or "base", B=ps.B, iters=ps.ITERS, ms=f"{r['ms']:.4f}",
+              us_per_tile=f"{r['us_per_tile']:.4f}", ns_per_step=f"{r['ns_per_step']:.2f}", card=card)
+    for r in fused:
+        phase("probe_step", fused_max_iters=r["max_iters"], B=ps.B, ef=120, expand=4, cand=32, ms=f"{r['ms']:.3f}",
+              iters_mean=f"{r['iters_mean']:.2f}", iters_max=r["iters_max"], card=card)
+    phase("probe_step", fused_ms_per_iteration=f"{ps.fused_slope(fused):.4f}", card=card)
+    for r in lanes:
+        phase("probe_lanes", mode=r["mode"], ns_per_step=f"{r['ns_per_step']:.2f}",
+              us_256=f"{r['ms_half'] * 1e3:.3f}", us_512=f"{r['ms'] * 1e3:.3f}", card=card)
+        check(r["ms"] >= 1.2 * r["ms_half"], f"probe_lanes {r['mode']}: 512 steps do not take longer than 256 ({r})")
+    return dict(launches=launches, err=err, times=times)
+
+
+def trace_phase(torch, graph, card: str) -> None:
+    """Phase 18: tools/perf_trace's profile of one warm 8192-query call on
+    ``graph`` (s8 blocks after phase 9's flip) at ef=100."""
+    from expann_tpu_torch.tools.perf_trace import profile_dispatch
+
+    graph.cfg.query_wire = "bf16"
+    graph.set_ef_search(100)
+    with tempfile.TemporaryDirectory() as log_dir:
+        prof = profile_dispatch(graph, B=8192, k=K, top=8, log_dir=log_dir)
+    phase("trace", B=prof["B"], ef=prof["ef"], wall_ms=f"{prof['wall_ms']:.3f}",
+          device_us=f"{prof['device_total_us']:.1f}", card=card)
+    for r in prof["top_kernels"]:
+        phase("trace", kernel=repr(r["kernel"][:90]), us=f"{r['us']:.1f}", pct=f"{r['pct']:.2f}")
+    check(prof["device_total_us"] > 0, "the trace holds no device time")
+    check(any("fused_search_s8" in r["kernel"] for r in prof["top_kernels"]),
+          "fused_search_s8 is not among the traced kernels")
 
 
 def main() -> None:
@@ -400,14 +608,12 @@ def main() -> None:
     from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain, topt_for
     from expann_tpu_torch.ops.packed import packed_score_cuda, packed_score_plain
     from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_fixed_cuda, flat_topk_plain
+    from expann_tpu_torch.utils.profiling import card_name, event_ms
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name()
     card = f"'{smi}'"
     phase("device", kind=repr(kind), count=count, torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=card)
 
@@ -427,6 +633,10 @@ def main() -> None:
         "flat_topk_s8_kernel": lib.expann_flat_topk_smem_bytes(D, 3 * K),
         "flat_topk_fixed_s8_kernel": lib.expann_flat_topk_smem_bytes(D, 3 * K),
         "fused_search_s8_kernel": lib.expann_fused_search_smem_bytes(D, 128, 128, GRAPH_CFG["query_expand"], topt),
+        "probe_fused_kernel": 0,
+        "block_gather_kernel": lib.expann_block_gather_smem_bytes(128, D, 4),
+        "step_overhead_kernel": lib.expann_step_overhead_smem_bytes(128),
+        "probe_lanes_kernel": 0,
     }
     for kname, info in sorted(ptx.items()):
         phase("build", kernel=kname, arch=info["arch"], registers=info["registers"],
@@ -627,11 +837,11 @@ def main() -> None:
     def flat_chain():  # one bf16 product with f32 results, then top-k
         return torch.topk(xn - 2.0 * torch.mm(qf, xf.T, out_dtype=torch.float32), K, dim=1, largest=False)
 
-    flat_lib_ms = cuda_ms(torch, flat_chain, reps=5)
-    flat_plain_ms = cuda_ms(torch, lambda: flat_topk_plain(qf, xf, K), reps=2)
+    flat_lib_ms = event_ms(flat_chain, reps=5)
+    flat_plain_ms = event_ms(lambda: flat_topk_plain(qf, xf, K), reps=2)
     flat_bound = bound(N * D * 2 + FLAT_CHUNK * D * 2 + FLAT_CHUNK * K * 8, 2.0 * FLAT_CHUNK * N * D)
     for name, fn in (("flat_topk", flat_topk_cuda), ("flat_topk_fixed", flat_topk_fixed_cuda)):
-        ms = cuda_ms(torch, lambda: fn(qf, xf, K), reps=5)
+        ms = event_ms(lambda: fn(qf, xf, K), reps=5)
         times[name] = dict(ms=ms, plain_ms=flat_plain_ms, library_ms=flat_lib_ms,
                            bound_ms=flat_bound[0], bound_by=flat_bound[1])
         phase("times", kernel=name, B=FLAT_CHUNK, n=N, k=K, ms=f"{ms:.3f}", plain_ms=f"{flat_plain_ms:.3f}",
@@ -643,8 +853,8 @@ def main() -> None:
     qt = qt.to(torch.bfloat16).to(dev).float()
     bd0, bi0, _ = entry_beam(g, qt, EF, GRAPH_CFG["entry_seeds"])
     fargs = (*args, qt, bd0, bi0, ef, GRAPH_CFG["query_expand"], topt, 8 * ef + 16)
-    fused_ms = cuda_ms(torch, lambda: fused_search_cuda(*fargs), reps=5)
-    fused_plain_ms = cuda_ms(torch, lambda: fused_search_plain(*fargs), reps=1)
+    fused_ms = event_ms(lambda: fused_search_cuda(*fargs), reps=5)
+    fused_plain_ms = event_ms(lambda: fused_search_plain(*fargs), reps=1)
     # bytes the traversal must read: per expansion one RS x D bf16 block plus
     # RS norms and RS ids (ncomp counts RS per expansion); queries and beams in and out
     rs = g.packed.shape[1]
@@ -673,9 +883,9 @@ def main() -> None:
             dots = torch.bmm(blk, qq, out_dtype=torch.float32)[:, :, 0].view(B, 2, rs)
             return torch.topk(g.packed_norms[s][:, :, :rs] - 2.0 * dots, t4, dim=2, largest=False)
 
-        ms = cuda_ms(torch, lambda: packed_score_cuda(*args, sel, qs, t4), reps=reps)
-        plain_ms = cuda_ms(torch, lambda: packed_score_plain(*args, sel, qs, t4), reps=max(2, reps // 4))
-        lib_ms = cuda_ms(torch, k4_chain, reps=reps)
+        ms = event_ms(lambda: packed_score_cuda(*args, sel, qs, t4), reps=reps)
+        plain_ms = event_ms(lambda: packed_score_plain(*args, sel, qs, t4), reps=max(2, reps // 4))
+        lib_ms = event_ms(k4_chain, reps=reps)
         pairs = 2 * B
         k4_bound = bound(pairs * (rs * D * 2 + rt * 8 + 4 + t4 * 8) + B * D * 4, pairs * rs * D * 2.0)
         if B == SMALL_CHUNK:
@@ -710,6 +920,15 @@ def main() -> None:
     check(not any(small_c.get(name, 0) for name in ("fused_search", "fused_search_s8", "packed_score")),
           f"compressed small batches launched the fused traversal or the block scorer: {small_c}")
 
+    # ---- 14-17. the probes; 18. the serving trace ----------------------------
+    pres = probe_phases(torch, dev, card)
+    launches["probes"] = pres["launches"]
+    times.update(pres["times"])
+    phase("launches", path="probes", **launches["probes"])
+    check(all(launches["probes"].get(n, 0) > 0 for n in ("probe_fused", "block_gather", "step_overhead", "probe_lanes")),
+          f"a probe kernel was never launched on the probes path: {launches['probes']}")
+    trace_phase(torch, graph, card)
+
     rows = [
         ("fused_search", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:69",
          launches["batched"]["fused_search"], fused_err),
@@ -725,6 +944,14 @@ def main() -> None:
          quant["flat_topk_fixed_s8"], flat_err["flat_fixed_s8"]),
         ("packed_score", "expann_tpu_torch/csrc/packed_score.cu", "expann_tpu/ops/pallas_beam.py:67",
          launches["small_batch"]["packed_score"], ps_err),
+        ("probe_fused", "expann_tpu_torch/csrc/probes.cu", "tools/probe_fused.py:26",
+         launches["probes"]["probe_fused"], pres["err"]["probe_fused"]),
+        ("block_gather", "expann_tpu_torch/csrc/probes.cu", "tools/perf_pallas_gather.py:34",
+         launches["probes"]["block_gather"], pres["err"]["block_gather"]),
+        ("step_overhead", "expann_tpu_torch/csrc/probes.cu", "tools/probe_step_overhead.py:30",
+         launches["probes"]["step_overhead"], pres["err"]["step_overhead"]),
+        ("probe_lanes", "expann_tpu_torch/csrc/probes.cu", "tools/probe_lanes.py:43",
+         launches["probes"]["probe_lanes"], pres["err"]["probe_lanes"]),
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n_launch,

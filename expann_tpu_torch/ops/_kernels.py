@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 At first use, ``nvcc`` compiles every source of ``csrc/`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, under
+(``sm_90a``), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, under
 ``build/kernels/`` at the repository root, named by a hash of the sources
 and flags; later calls (and later processes) reuse it.  The library is
 bound with ``ctypes``: device pointers from ``Tensor.data_ptr()``, PyTorch's
@@ -27,10 +28,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flat_topk.cu", "fused_search.cu", "packed_score.cu")
+SOURCES = ("flat_topk.cu", "fused_search.cu", "packed_score.cu", "probes.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -49,6 +50,13 @@ _SIGNATURES = {
     "expann_fused_search_smem_bytes": [_I] * 5,
     "expann_packed_score_bf16": [_P] * 7 + [_I] * 7 + [_P],
     "expann_packed_score_smem_bytes": [_I, _I],
+    "expann_smem_optin": [],
+    "expann_probe_fused": [_P] * 4 + [_I] * 2 + [_P],
+    "expann_block_gather": [_P] * 4 + [_I] * 4 + [_P],
+    "expann_block_gather_smem_bytes": [_I] * 3,
+    "expann_step_overhead": [_P] * 4 + [_I] * 7 + [_P],
+    "expann_step_overhead_smem_bytes": [_I],
+    "expann_probe_lanes": [_P] * 2 + [_I] * 3 + [_P],
 }
 
 
@@ -71,17 +79,26 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libexpann_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build into a temporary name, then rename: concurrent builders
-        # never load a half-written library
-        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stderr)
-        os.replace(tmp, so)
+        # compile each source in its own process, all at once, then link
+        # under a temporary name and rename: concurrent builders never load a
+        # half-written library
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+            procs = [
+                subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / s)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for s, obj in zip(SOURCES, objs)
+            ]
+            errs = [p.communicate()[1] for p in procs]
+            failed = [f"{s} ({p.returncode}):\n{e}" for s, p, e in zip(SOURCES, procs, errs) if p.returncode != 0]
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            lib_tmp = os.path.join(tmp, "lib.so")
+            proc = subprocess.run([_nvcc(), "-shared", "-o", lib_tmp, *objs], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+            so.with_suffix(".log").write_text("".join(errs))
+            os.replace(lib_tmp, so)
     lib = ctypes.CDLL(str(so))
     for fn, argtypes in _SIGNATURES.items():
         getattr(lib, fn).argtypes = argtypes

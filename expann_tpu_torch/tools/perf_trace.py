@@ -1,0 +1,122 @@
+"""Trace-driven serving profile (counterpart of tools/perf_trace.py; uses
+``utils/profiling.trace``).
+
+Captures a ``torch.profiler`` trace around one warm ``query_k_batch`` call
+of a graph engine and reports where the card's time went: device time per
+kernel, summed from the kernel records of the exported Chrome trace.  The
+counters say how many distance computations ran (RECORD_STATS,
+src/antitopo_engine.h:125-129); the trace says where the time went, as the
+reference's callgrind toggles around the query loop did
+(src/basic_bench.h:76-77, 128-129).
+
+    python -m expann_tpu_torch.tools.perf_trace [--B 8192] [--ef 100] [--top 15]
+        [--log-dir build/trace] [--index index/perf_fused_idx_56000.npz]
+
+serves the canonical 56k index on s8 packed blocks; the index file is
+built on the card first if it is missing.  Prints a JSON object with the
+top kernels by device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import gzip
+import json
+import os
+import tempfile
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+
+from expann_tpu_torch.utils.profiling import DEFAULT_LOG_DIR, annotate, trace
+
+ROOT = Path(__file__).resolve().parents[2]
+IDX = str(ROOT / "index" / "perf_fused_idx_56000.npz")
+
+
+def parse_trace(log_dir: str, top: int):
+    """Device time per kernel name (µs) in the newest Chrome trace under
+    ``log_dir``, kernel records only (``"cat": "kernel"``): the ``top``
+    names by total time, and the total.  ``(None, None)`` without a trace."""
+    paths = sorted(glob.glob(os.path.join(log_dir, "*.json")) + glob.glob(os.path.join(log_dir, "*.json.gz")),
+                   key=os.path.getmtime)
+    if not paths:
+        return None, None
+    opener = gzip.open if paths[-1].endswith(".gz") else open
+    with opener(paths[-1], "rt") as f:
+        events = json.load(f).get("traceEvents", [])
+    kernel_us = defaultdict(float)
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel" and "dur" in e:
+            kernel_us[e["name"]] += float(e["dur"])
+    ranked = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:top]
+    return ranked, sum(kernel_us.values())
+
+
+def profile_dispatch(eng, B: int = 8192, k: int = 10, top: int = 15, log_dir: str = DEFAULT_LOG_DIR,
+                     seed: int = 7) -> dict:
+    """One warm ``query_k_batch`` of B fresh N(0, 1) queries on ``eng``
+    under the profiler: wall ms (profiler included), device µs of the
+    kernels, and the top kernels with their shares.  A warm-up call of
+    other queries runs first under a trace of its own: the first trace in a
+    process pays the tracer's start-up (seconds on an H100 host), which must
+    not land in the timed call.  The timed call's trace is the newest file
+    in ``log_dir``."""
+    rng = np.random.default_rng(seed)
+    with trace(log_dir, device=eng.device):
+        eng.query_k_batch(rng.standard_normal((B, eng.dim)).astype(np.float32), k)
+    qs = rng.standard_normal((B, eng.dim)).astype(np.float32)
+    t0 = time.perf_counter()
+    with trace(log_dir, device=eng.device):
+        with annotate("fused_serving_dispatch"):
+            eng.query_k_batch(qs, k)
+    wall = time.perf_counter() - t0
+    ranked, total_us = parse_trace(log_dir, top)
+    if not ranked:
+        raise RuntimeError(f"no kernel records in the trace under {log_dir}")
+    return {
+        "B": B,
+        "ef": eng.cfg.ef_search,
+        "wall_ms": wall * 1e3,
+        "device_total_us": total_us,
+        "top_kernels": [{"kernel": name[:120], "us": us, "pct": 100 * us / total_us} for name, us in ranked],
+    }
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--B", type=int, default=8192)
+    ap.add_argument("--ef", type=int, default=100)
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--log-dir", default=DEFAULT_LOG_DIR)
+    ap.add_argument("--index", default=IDX)
+    args = ap.parse_args(argv)
+
+    from expann_tpu_torch.data.loader import load_synthetic_uniform_sphere_points
+    from expann_tpu_torch.models.antitopo import AntitopoConfig, AntitopoEngine
+
+    # the index of tools/perf_e2e_graph.py's build (prune_overflow=1), served
+    # as tools/perf_trace.py serves it: s8 blocks, 8 entry seeds
+    cfg = AntitopoConfig(
+        M=60, ef_construction=500, prune_cand=500, prune_overflow=1,
+        packed_dtype="i8", entry_seeds=8, ef_search=args.ef,
+        index_filename=args.index, read_index=True, write_index=True,
+    )
+    eng = AntitopoEngine(config=cfg)
+    if not os.path.exists(args.index):
+        os.makedirs(os.path.dirname(os.path.abspath(args.index)), exist_ok=True)
+        with tempfile.TemporaryDirectory() as cache:
+            ds = load_synthetic_uniform_sphere_points(56000, 400, 10, 128, cache_dir=cache)
+        eng.store_many_vectors(ds.vecs)
+    eng.build()
+    out = profile_dispatch(eng, args.B, top=args.top, log_dir=args.log_dir)
+    print(f"traced dispatch: {out['wall_ms']:.1f} ms wall (B={args.B})", flush=True)
+    print(json.dumps(out, indent=1), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

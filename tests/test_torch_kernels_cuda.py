@@ -17,6 +17,7 @@ from expann_tpu_torch.ops import _kernels
 from expann_tpu_torch.ops.fused import fused_search, fused_search_plain, topt_for
 from expann_tpu_torch.ops.packed import build_packed, build_packed_i8, packed_score, packed_score_plain
 from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain
+from expann_tpu_torch.tools import perf_pallas_gather, probe_fused, probe_lanes, probe_step_overhead
 from expann_tpu_torch.utils.persist import graph_from_numpy, graph_to_numpy
 
 pytestmark = pytest.mark.cuda
@@ -33,7 +34,8 @@ def test_kernels_build(dev):
     lib = _kernels.library()
     report = _kernels.build_report()
     for name in ("flat_topk_kernel", "flat_topk_fixed_kernel", "fused_search_kernel", "packed_score_kernel",
-                 "flat_topk_s8_kernel", "flat_topk_fixed_s8_kernel", "fused_search_s8_kernel"):
+                 "flat_topk_s8_kernel", "flat_topk_fixed_s8_kernel", "fused_search_s8_kernel",
+                 "probe_fused_kernel", "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel"):
         assert name in report
     assert lib.expann_flat_topk_smem_bytes(128, 10) > 0
 
@@ -226,3 +228,102 @@ def test_query_batch_matches_cpu(dev, use_packed):
     overlap = np.mean([len(set(r) & set(s)) / 10 for r, s in zip(a, b)])
     assert overlap >= 0.99, overlap
     assert abs(na - nb) <= 0.01 * nb
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_probe_fused_identical_to_plain(dev, seed):
+    """P1: the bulk copy by an in-kernel index and the data-dependent loop
+    give exactly the plain version's arrays."""
+    tab, x = probe_fused.inputs(dev, seed)
+    x[0, :8] += 5.0 * seed
+    before = _kernels.launches["probe_fused"]
+    o, w = probe_fused.probe_fused(tab, x)
+    assert _kernels.launches["probe_fused"] == before + 1
+    po, pw = probe_fused.probe_fused_plain(tab, x)
+    torch.cuda.synchronize()
+    assert torch.equal(o, po) and torch.equal(w, pw), (float(w[0, 0]), float(pw[0, 0]))
+
+
+@pytest.mark.parametrize(
+    "R,nbuf", [(R, nbuf) for R in (16, 32, 64, 128) for nbuf in (2, 4, 8) if (R, nbuf) != (128, 8)]
+)
+def test_block_gather_matches_plain(dev, R, nbuf):
+    """P2 at every ring of the sweep that fits, at an odd step count that
+    wraps each block's ring several times (the grid is at most 8 blocks of
+    256 threads per SM, so ~31 steps per block on 132 SMs): every step's row
+    against the plain version, |d| <= 1e-4 (1 + |ref|) (bf16 inputs, f32
+    sums in another order)."""
+    NB, G = 4096, 33001
+    gen = torch.Generator(device=dev).manual_seed(R + nbuf)
+    packed = torch.randn((NB, R, 128), generator=gen, device=dev).to(torch.bfloat16)
+    ids = torch.randint(0, NB, (G,), generator=gen, device=dev, dtype=torch.int32)
+    q = torch.randn((1, 128), generator=gen, device=dev).to(torch.bfloat16)
+    before = _kernels.launches["block_gather"]
+    got = perf_pallas_gather.block_gather_scores(packed, ids, q, nbuf)
+    assert _kernels.launches["block_gather"] == before + 1
+    ref = perf_pallas_gather.block_gather_scores_plain(packed, ids, q)
+    torch.cuda.synchronize()
+    assert got.shape == (G, R)
+    assert bool(((got - ref).abs() <= 1e-4 * (1 + ref.abs())).all()), float((got - ref).abs().max())
+    assert torch.equal(perf_pallas_gather.run_block_gather(packed, ids, q, nbuf), got[-1:])
+
+
+def test_block_gather_refuses_a_ring_that_does_not_fit(dev):
+    packed = torch.zeros((16, 128, 128), dtype=torch.bfloat16, device=dev)
+    ids = torch.zeros((8,), dtype=torch.int32, device=dev)
+    q = torch.zeros((1, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        perf_pallas_gather.block_gather_scores(packed, ids, q, 8)
+
+
+@pytest.mark.parametrize("max_iters", probe_step_overhead.FUSED_ITERS)
+def test_fused_search_matches_plain_on_probe_layout(dev, max_iters):
+    """K1 as P3's companion drives it (random 4097-block layout, ef=120,
+    expand=4, cand=32) against its plain version on a slice of the queries,
+    at both iteration caps: beams, distances, distance counts and iteration
+    counts.  The two sum q.x in another order, so a near-tie may flip an
+    insertion; whole-beam agreement is the gate."""
+    packed, norms, ids, q, bd0, bi0 = probe_step_overhead.fused_inputs(dev, b=256)
+    n = probe_step_overhead.NODES
+    got = fused_search(packed, norms, ids, q, bd0, bi0, ef=120, expand=4, cand=32, max_iters=max_iters)
+    ref = fused_search_plain(packed, norms, ids, q, bd0, bi0, 120, 4, topt_for(32, 4, 128), max_iters)
+    torch.cuda.synchronize()
+    agree = probe_step_overhead.fused_agreement(got, ref, sentinel=n)
+    assert agree["same_beams"] >= 0.95 and agree["overlap"] >= 0.99, agree
+    assert agree["dist_err"] <= 2e-3 + 1e-5 * agree["dist_max"], agree
+    assert agree["same_iters"] >= 0.95 and abs(agree["iters_ratio"] - 1) <= 0.01, agree
+    assert abs(agree["ncomp_ratio"] - 1) <= 0.01, agree
+    assert int(got[3].max()) <= max_iters
+
+
+@pytest.mark.parametrize("feat", probe_step_overhead.FEATURES)
+def test_step_overhead_matches_plain(dev, feat):
+    """P3, every feature, at the tool's shape: rtol = atol = 1e-6 (the
+    kernel rounds every multiply and add as the plain version does)."""
+    q, bd0, packed = probe_step_overhead.inputs(dev)
+    before = _kernels.launches["step_overhead"]
+    got = probe_step_overhead.step_overhead(q, bd0, packed, feat)
+    assert _kernels.launches["step_overhead"] == before + 1
+    ref = probe_step_overhead.step_overhead_plain(q, bd0, packed, feat)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", probe_lanes.MODES)
+def test_lane_ops_match_plain(dev, mode):
+    """P4, every mode at the tool's shape (512 rows, 512 steps): exact for
+    the compare-exchange stages and the broadcast, rtol 1e-6 for the
+    reductions and carries, 1e-5 for the prefix sum (another order), atol
+    1e-6 where a value passes near 0."""
+    x = probe_lanes.inputs(dev)
+    x[:, 3] = x[:, 70]
+    before = _kernels.launches["probe_lanes"]
+    got = probe_lanes.lane_ops(x, mode)
+    assert _kernels.launches["probe_lanes"] == before + 1
+    ref = probe_lanes.lane_ops_plain(x, mode)
+    torch.cuda.synchronize()
+    if mode in ("stage", "stage64", "bcast"):
+        assert torch.equal(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-5 if mode == "matmul_cumsum" else 1e-6, atol=1e-6)
