@@ -47,6 +47,7 @@ _SIGNATURES = {
     "expann_fused_search_bf16": [_P] * 10 + [_I] * 10 + [_P],
     "expann_fused_search_s8": [_P] * 10 + [_I] * 10 + [_P],
     "expann_flat_topk_smem_bytes": [_I, _I],
+    "expann_flat_topk_fixed_smem_bytes": [_I, _I],
     "expann_fused_search_smem_bytes": [_I] * 5,
     "expann_packed_score_bf16": [_P] * 7 + [_I] * 7 + [_P],
     "expann_packed_score_smem_bytes": [_I, _I],

@@ -9,9 +9,10 @@ to bf16; an int8 corpus (centered codes from ``quantize_corpus_i8``) needs
 int8 queries (``quantize_query_i8``), as the JAX launcher asserts, and its
 distances are exact integers (every partial sum stays below 2^24).  On a
 CUDA tensor it launches a hand-written kernel of ``csrc/flat_topk.cu``:
-the count-then-insert kernel (``mode="count"``, the default) or the fixed
-k-pass kernel (``mode="fixed"``), each in a bf16 and an s8 version; both
-modes compute the same function.  On a CPU tensor it runs
+the count-then-insert kernel (``mode="count"``, the default; distance
+tiles on the tensor cores) or the fixed k-pass kernel (``mode="fixed"``;
+an f32 FMA tile), each in a bf16 and an s8 version; both modes compute the
+same function.  On a CPU tensor it runs
 ``flat_topk_plain``, the plain PyTorch version of all four.
 
 The selection is exact: the TPU kernel's 128-lane pooling and packed keys

@@ -41,37 +41,59 @@ def test_kernels_build(dev):
 
 
 @pytest.mark.parametrize("mode", ["count", "fixed"])
-@pytest.mark.parametrize("n,B,k", [(5000, 300, 10), (777, 70, 128), (64, 5, 100)])
-def test_flat_topk_matches_plain(dev, n, B, k, mode):
-    rng = np.random.default_rng(n)
-    x = torch.from_numpy(rng.standard_normal((n, 128)).astype(np.float32)).to(dev, torch.bfloat16)
-    q = torch.from_numpy(rng.standard_normal((B, 128)).astype(np.float32)).to(dev)
+@pytest.mark.parametrize(
+    "n,B,k,D",
+    [(5000, 300, 10, 128), (777, 70, 128, 128), (64, 5, 100, 128), (4097, 1, 10, 128), (1000, 37, 30, 64),
+     (3001, 129, 1, 256), (200, 65, 128, 256), (100, 3, 128, 64)],
+)
+def test_flat_topk_matches_plain(dev, n, B, k, D, mode):
+    """K2 / K3 against the plain version: n and B off the tile sizes (64 rows,
+    64 queries), B = 1, D in {64, 128, 256} (256: two ring chunks per tile),
+    k up to 128 and above n, duplicated corpus rows (exact ties) and queries
+    equal to corpus rows."""
+    rng = np.random.default_rng(n + D)
+    xh = rng.standard_normal((n, D)).astype(np.float32)
+    xh[n // 2 : n // 2 + n // 8] = xh[: n // 8]
+    qh = rng.standard_normal((B, D)).astype(np.float32)
+    qh[: B // 3] = xh[n // 4 : n // 4 + B // 3]
+    x = torch.from_numpy(xh).to(dev, torch.bfloat16)
+    q = torch.from_numpy(qh).to(dev)
     before = _kernels.launches["flat_topk" if mode == "count" else "flat_topk_fixed"]
     ids, d = flat_topk(q, x, k, mode=mode)
     assert _kernels.launches["flat_topk" if mode == "count" else "flat_topk_fixed"] == before + 1
     pids, pd = flat_topk_plain(q, x, k)
     torch.cuda.synchronize()
-    # f32 sums in another order: distances agree to a few ulps of |x|^2 ~ 256
+    # f32 sums in another order: distances agree to a few ulps of |x|^2 ~ 2D
     kk = min(k, n)
     torch.testing.assert_close(d[:, :kk], pd[:, :kk], rtol=1e-5, atol=1e-3)
-    # ids agree except where two candidates tie within that tolerance
+    # ids agree except where two candidates tie within that tolerance: the
+    # kernel's id at a differing slot lies at the plain version's distance
     diff = ids[:, :kk] != pids[:, :kk]
     assert float(diff.float().mean()) < 0.01
+    if bool(diff.any()):
+        qb, xb = q.to(torch.bfloat16).float(), x.float()
+        own = ((qb[:, None, :] - xb[ids[:, :kk].long()]) ** 2).sum(-1)
+        torch.testing.assert_close(own[diff], pd[:, :kk][diff], rtol=1e-5, atol=1e-3)
     if k > n:
         assert bool((ids[:, n:] == -1).all()) and bool(torch.isinf(d[:, n:]).all())
 
 
 @pytest.mark.parametrize("mode", ["count", "fixed"])
-@pytest.mark.parametrize("n,B,k", [(5000, 301, 30), (3001, 129, 1), (777, 71, 128), (64, 5, 100)])
-def test_flat_topk_s8_identical_to_plain(dev, n, B, k, mode):
+@pytest.mark.parametrize(
+    "n,B,k,D",
+    [(5000, 301, 30, 128), (3001, 129, 1, 128), (777, 71, 128, 128), (64, 5, 100, 128), (4097, 1, 10, 128),
+     (1000, 37, 30, 64), (2000, 65, 10, 256), (300, 200, 128, 512)],
+)
+def test_flat_topk_s8_identical_to_plain(dev, n, B, k, D, mode):
     """K2-s8 / K3-s8 against the plain version on int8 codes over the full
-    range, with duplicated rows (exact integer ties): distances are exact
-    integers on both sides and ties go by id, so ids and distances are
-    identical."""
-    rng = np.random.default_rng(n + k)
-    x = rng.integers(-127, 128, (n, 128)).astype(np.int8)
+    range, with duplicated rows (exact integer ties), n and B off the tile
+    sizes, D in {64, 128, 256, 512} (512: two ring chunks per tile):
+    distances are exact integers on both sides and ties go by id, so ids and
+    distances are identical."""
+    rng = np.random.default_rng(n + k + D)
+    x = rng.integers(-127, 128, (n, D)).astype(np.int8)
     x[n // 2 : n // 2 + n // 8] = x[: n // 8]
-    q = rng.integers(-127, 128, (B, 128)).astype(np.int8)
+    q = rng.integers(-127, 128, (B, D)).astype(np.int8)
     q[: B // 3] = x[n // 4 : n // 4 + B // 3]
     xt, qt = torch.from_numpy(x).to(dev), torch.from_numpy(q).to(dev)
     name = "flat_topk_s8" if mode == "count" else "flat_topk_fixed_s8"

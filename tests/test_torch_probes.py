@@ -24,7 +24,9 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from expann_tpu_torch.ops.fused import fused_search
-from expann_tpu_torch.tools import perf_pallas_gather, perf_trace, probe_fused, probe_lanes, probe_step_overhead
+from expann_tpu_torch.tools import (
+    perf_flat_mode, perf_pallas_gather, perf_trace, probe_fused, probe_lanes, probe_step_overhead,
+)
 from expann_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -231,3 +233,31 @@ def test_parse_trace_ranks_kernels(tmp_path):
     assert ranked == [("fused_search_s8_kernel", 1000.0), ("rerank_gather", 60.0)]
     assert total == 1100.0
     assert perf_trace.parse_trace(str(tmp_path / "none"), top=2) == (None, None)
+
+
+def test_perf_flat_mode_refuses_without_a_card(monkeypatch):
+    """The flat timing tool measures the card or nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="GPU"):
+        perf_flat_mode.main([])
+
+
+def test_parse_copies_sums_copies_and_the_region(tmp_path):
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "flat_topk_kernel", "dur": 900.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD (Pageable -> Device)", "dur": 300.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pageable)", "dur": 20.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD (Pageable -> Device)", "dur": 100.0},
+        {"ph": "X", "cat": "gpu_memset", "name": "Memset (Device)", "dur": 5.0},
+        {"ph": "X", "cat": "user_annotation", "name": perf_trace.REGION, "dur": 2500.0},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": perf_trace.REGION, "dur": 1400.0},
+        {"ph": "X", "cat": "user_annotation", "name": "other", "dur": 9000.0},
+    ]
+    (tmp_path / "t.json").write_text(json.dumps({"traceEvents": events}))
+    copies, total, span = perf_trace.parse_copies(str(tmp_path), perf_trace.REGION)
+    assert copies == {"Memcpy HtoD (Pageable -> Device)": 400.0, "Memcpy DtoH (Device -> Pageable)": 20.0,
+                      "Memset (Device)": 5.0}
+    assert list(copies)[0].startswith("Memcpy HtoD")
+    assert total == 425.0 and span == 2500.0
+    assert perf_trace.parse_copies(str(tmp_path), "missing")[2] is None
+    assert perf_trace.parse_copies(str(tmp_path / "none"), perf_trace.REGION) == (None, None, None)
