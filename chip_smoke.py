@@ -4,8 +4,9 @@
 Phases, one line each:
   1. device        the card, as torch and nvidia-smi name it;
   2. build         nvcc builds the kernels of expann_tpu_torch/csrc for sm_90a
-                   (registers and spills from ptxas, shared memory per launch;
-                   K2 and K2-s8 must not spill);
+                   (registers and spills from ptxas, the most of any template
+                   instance, shared memory per launch; no flat top-k kernel,
+                   K2, K2-s8, K3 or K3-s8, may spill);
   3. flat_topk     the count-mode flat top-k kernel (K2) against its plain
                    version, random bf16 corpus n=56000, d=128, 4096 queries,
                    k=10; flat_fixed: the fixed-pass kernel (K3) the same way
@@ -17,7 +18,8 @@ Phases, one line each:
                    bench.py's graph config, built on the card and served at
                    ef 40 / 100 / 120 in 400-query calls (the fused route),
                    recall@10 against the exact oracle; then the flat engine
-                   with topk_mode="fixed" (K3's path);
+                   with topk_mode="fixed" (K3's path), whose ids must equal
+                   count mode's;
   5. fused         the traversal kernel (K1) against its plain version on that
                    graph at ef=120, from the same seeded beams;
   6. packed_score  the block scorer (K4) against its plain version on that
@@ -32,7 +34,9 @@ Phases, one line each:
                    events, utils/profiling.event_ms) at the paths' shapes,
                    beside each kernel's bound; K2 and K3 are first held to
                    their plain version on the timed inputs (16384 queries
-                   on the flat engine's corpus) with phase 3's limits;
+                   on the flat engine's corpus) with phase 3's limits, and
+                   each flat kernel's time is printed as a factor of the
+                   library chain's (vs_library > 1: the kernel is faster);
   9. canonical_quantized  quantized serving on the canonical config: the flat
                    engine mode="fused_i8" on both query wires and in both
                    top-k modes, then bench.py's flow on the graph engine built
@@ -48,7 +52,8 @@ Phases, one line each:
                    beside their plain versions, bounds and library chain;
                    K2-s8 and K3-s8 are first held to their plain version on
                    the timed inputs (16384 queries on fused_i8's codes,
-                   k=30), identical ids and distances;
+                   k=30), identical ids and distances, each time beside the
+                   library chain's as a factor;
  13. launches      kernel launches counted on each path: the counts are set to
                    0 just before a path and read just after;
  14. probe_fused   P1 (expann_tpu_torch/tools/probe_fused.py) against its
@@ -160,18 +165,24 @@ PROBE_G = 33001
 
 
 def ptxas_summary(report: str) -> dict:
-    """Registers and spill bytes per kernel from the ptxas report."""
+    """Registers and spill bytes per kernel from the ptxas report; a kernel
+    built in several template instances (K3 and K3-s8: one per list size)
+    reports its count of instances and the most registers and spill bytes
+    of any."""
     out, current = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)' for '(\w+)'", line)
         if m:
             current = next((k for k in KERNEL_NAMES if re.search(rf"\d{k}", m.group(1))), None)
             if current:
-                out[current] = {"arch": m.group(2)}
+                info = out.setdefault(current, {"arch": m.group(2), "instances": 0, "registers": 0, "spill_bytes": 0})
+                info["instances"] += 1
         elif current and "registers" in line:
-            out[current]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out[current]["registers"] = max(out[current]["registers"], regs)
         elif current and "spill stores" in line:
-            out[current]["spill_bytes"] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+            spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+            out[current]["spill_bytes"] = max(out[current]["spill_bytes"], spills)
     return out
 
 
@@ -425,7 +436,8 @@ def quantized_phases(torch, dev, ds, graph, card: str, topt: int) -> dict:
         ms = event_ms(lambda: fn(q8, x8, k8), reps=5)
         times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=fb[0], bound_by=fb[1])
         phase("times", kernel=name, B=FLAT_CHUNK, n=N, k=k8, ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
-              library_ms="null" if lib_ms is None else f"{lib_ms:.3f}", bound_ms=f"{fb[0]:.4f}", bound_by=fb[1],
+              library_ms="null" if lib_ms is None else f"{lib_ms:.3f}",
+              vs_library="null" if lib_ms is None else f"{lib_ms / ms:.2f}x", bound_ms=f"{fb[0]:.4f}", bound_by=fb[1],
               achieved_tops=f"{2.0 * FLAT_CHUNK * N * D / (ms * 1e-3) / 1e12:.1f}", card=card)
     del x8, q8, xn8, qn8
 
@@ -733,11 +745,12 @@ def main() -> None:
         "probe_lanes_kernel": 0,
     }
     for kname, info in sorted(ptx.items()):
-        phase("build", kernel=kname, arch=info["arch"], registers=info["registers"],
-              spill_bytes=info.get("spill_bytes", 0), dynamic_smem_bytes=smem[kname])
+        phase("build", kernel=kname, arch=info["arch"], instances=info["instances"], registers=info["registers"],
+              spill_bytes=info["spill_bytes"], dynamic_smem_bytes=smem[kname])
     phase("build", seconds=f"{build_s:.3f}", source=os.path.join("expann_tpu_torch", "csrc"))
-    check(all(ptx[name].get("spill_bytes", 0) == 0 for name in ("flat_topk_kernel", "flat_topk_s8_kernel")),
-          f"K2 / K2-s8 spill registers: {ptx['flat_topk_kernel']}, {ptx['flat_topk_s8_kernel']}")
+    flat_kernels = ("flat_topk_kernel", "flat_topk_s8_kernel", "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel")
+    check(all(ptx[name]["spill_bytes"] == 0 for name in flat_kernels),
+          f"a flat top-k kernel spills registers: {[(name, ptx[name]) for name in flat_kernels]}")
 
     # ---- 3. flat_topk (K2) and flat_fixed (K3) against the plain version ---
     rng = np.random.default_rng(0)
@@ -801,6 +814,9 @@ def main() -> None:
     phase("canonical", engine="flat", mode="fused", topk_mode="fixed", recall_at_10=f"{fixed_recall:.4f}",
           ids_equal_count_mode=bool((fixed_ids == flat_ids).all()))
     check(fixed_recall >= 0.99, f"flat (topk_mode=fixed) recall@10 {fixed_recall} < 0.99")
+    # K3 runs K2's distance tile and orders by (d, id) as K2 does
+    check(bool((fixed_ids == flat_ids).all()),
+          f"flat topk_mode=fixed ids differ from count mode on {int((fixed_ids != flat_ids).any(1).sum())} rows")
 
     # ---- 5. the traversal kernel against its plain version ----------------
     qg = torch.from_numpy(ds.queries).to(torch.bfloat16).to(dev).float()
@@ -929,7 +945,7 @@ def main() -> None:
         times[name] = dict(ms=ms, plain_ms=flat_plain_ms, library_ms=flat_lib_ms,
                            bound_ms=flat_bound[0], bound_by=flat_bound[1])
         phase("times", kernel=name, B=FLAT_CHUNK, n=N, k=K, ms=f"{ms:.3f}", plain_ms=f"{flat_plain_ms:.3f}",
-              library_ms=f"{flat_lib_ms:.3f}", bound_ms=f"{flat_bound[0]:.4f}",
+              library_ms=f"{flat_lib_ms:.3f}", vs_library=f"{flat_lib_ms / ms:.2f}x", bound_ms=f"{flat_bound[0]:.4f}",
               bound_by=flat_bound[1], achieved_tflops=f"{2.0 * FLAT_CHUNK * N * D / (ms * 1e-3) / 1e12:.1f}",
               card=card)
 

@@ -23,7 +23,7 @@
 // these kernels is the exact oracle.  The (B, N) distance matrix is never
 // written to device memory.
 //
-// K2 / K2-s8: tensor-core distance tiles.
+// The tile, shared by all four kernels: tensor-core distance tiles.
 //   Bound on this card: operations.  B x N x D multiply-adds
 //   (16384 x 56000 x 128 = 117 G per call) against the tensor cores' dense
 //   989 TFLOP/s in bf16 and 1,979 TOP/s in int8: 0.24 / 0.12 ms.  The f32
@@ -31,7 +31,7 @@
 //   was bound by the 67 TFLOP/s of non-tensor f32 instead, 15x / 30x lower.
 //   The corpus (56000 x 128: 14 MB bf16, 7 MB s8) stays in the 50 MB L2; each
 //   block streams all of it, so L2 carries B / QB corpus copies per call.
-//   Design: one block of 256 threads (8 warps) per QB = 64 queries, as before.
+//   Design: one block of 256 threads (8 warps) per QB = 64 queries.
 //   - Warp w owns query rows 16 (w % 4) .. +15 and tile rows 32 (w / 4) .. +31:
 //     four m16n8 `mma.sync` tiles, `m16n8k16.row.col.f32.bf16.bf16.f32` (f32
 //     accumulation) or `m16n8k32.row.col.s32.s8.s8.s32` (exact).  Both take
@@ -53,34 +53,41 @@
 //     values, `__dp4a` for s8), |q|^2 once per query; d = max((qn + xn) -
 //     2 dot, 0), in int32 on s8 and converted once; the (QB x CT) distances go
 //     to the shared `ds` tile (row stride CT + 8: conflict-free float2
-//     stores), read by the count-then-insert merge: per query a warp ballot
-//     finds the tile's candidates below the query's current k-th (d, id) and
-//     only those are inserted (the TPU count kernel's idea, exact; late tiles
-//     rarely insert anything).
+//     stores).  Then each warp merges the tile into the running lists of
+//     8 queries, by the kernel's selection (below).
 //   - Why `mma.sync` and not `wgmma`: at even 30% of `mma.sync`'s rate the
 //     product is under 1 ms per 16384 x 56000 call, below what the merge and
 //     the per-tile barriers take; `wgmma` (with TMA and warp specialisation) is
 //     the lever once a trace shows the product as the limit.
 //   Tile shape: QB = 64 keeps 256 blocks on the main path's B = 16384, two
 //   resident per SM (registers capped at 128 a thread) on 132 SMs; CT = 64
-//   gives each warp 16 x 32 outputs (16 accumulators) and the merge two
-//   ballots per query and tile.  Shared memory: 3 x 17 KB ring + 18 KB ds +
-//   512 k bytes of running lists (74.5 KiB at k=10, 133.5 KiB at k=128), for
-//   any D % 64 == 0.
+//   gives each warp 16 x 32 outputs (16 accumulators) and each query 64
+//   candidates per tile.  Shared memory: 3 x 17 KB ring + 18 KB ds + 512 k
+//   bytes of running lists (74.5 KiB at k=10, 133.5 KiB at k=128), for any
+//   D % 64 == 0.  K3 shares K2's tile, so the two compute the same distances
+//   bit for bit and, both ordering by (d, id), return the same lists.
 //
-// K3 / K3-s8 keep the f32 tile until their own redesign: the query tile in
-// shared memory as f32, transposed; corpus tiles of CT=64 rows staged in
-// DK=64-feature chunks, transposed, each thread a 4x4 register micro-tile of
-// `fmaf` (s8 codes staged to f32, exact); then per tile and per query exactly
-// k passes, each a warp argmin by (d, id), an insertion if it beats the
-// list's last entry, and the winner knocked out — the TPU fixed kernel's k
-// extract+insert passes, exact (its (d, id) tie-break, :132-134).  K3 pays k
-// passes on every tile whatever the data; it exists to keep the TPU package's
-// `topk_mode="fixed"`.
+// K2 / K2-s8 select by count-then-insert: per query a warp ballot finds the
+// tile's candidates below the query's current k-th (d, id) and only those are
+// inserted (the TPU count kernel's idea, exact; late tiles rarely insert
+// anything).
+//
+// K3 / K3-s8 select by a data-oblivious compare-exchange network, the TPU
+// fixed kernel's idea (k extract+insert passes on every tile, whatever the
+// data, :113-140) without its serial passes: a warp argmin costs ~270 ns a
+// step on this card and a compare-exchange stage 13-30 ns (P4's `reduce3`
+// against `stage` / `stage64`).  Per query and tile: a bitonic sort of the 64
+// candidates (21 stages, 15 of them shuffles), then a merge with the running
+// list padded to the power of two P >= k (1 + log2 P stages); details at
+// `NetworkMerge`.  Its cost depends on k only through P, never on the
+// distances: no ballot pre-filter and no early exit, which would make it K2.
+// What bounds it: shuffles and compare-exchange instructions, ~18 shuffle
+// stages a query and tile at k <= 16, and not the tile's operations.  Order
+// is by (d, id) on one 64-bit key, so ties break by id as in the plain
+// version's stable sort.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -88,12 +95,11 @@ namespace {
 
 constexpr int QB = 64;        // queries per block
 constexpr int CT = 64;        // corpus rows per tile
-constexpr int DK = 64;        // features staged per chunk (K3's f32 tile)
 constexpr int THREADS = 256;  // 8 warps
 constexpr int KMAX = 128;     // largest k (4 list slots per lane)
 constexpr unsigned FULL = 0xffffffffu;
 
-// K2's tensor-core tile
+// the tensor-core tile
 constexpr int CHUNK = 256;              // row bytes per ring item
 constexpr int ROW_STRIDE = CHUNK + 16;  // padded slot row: ldmatrix conflict-free
 constexpr int SLOT = CT * ROW_STRIDE;   // bytes per ring slot
@@ -155,10 +161,6 @@ __device__ void store_lists(const float* ld, const int* li, int q0, int B, int k
     }
   }
 }
-
-// ---------------------------------------------------------------------------
-// K2 / K2-s8: the tensor-core tile
-// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -264,12 +266,169 @@ __device__ __forceinline__ void load_a(uint32_t* a, const char* ra, const char* 
   a[3] = rb ? __ldg(reinterpret_cast<const uint32_t*>(rb + off + 16)) : 0u;
 }
 
-template <typename T>
-__device__ __forceinline__ void count_body(const T* __restrict__ q,  // (B, D)
-                                           const T* __restrict__ x,  // (n, D)
-                                           int n, int B, int D, int k,
-                                           int* __restrict__ out_ids,    // (B, k)
-                                           float* __restrict__ out_d) {  // (B, k)
+// ---------------------------------------------------------------------------
+// The selections, run by each warp once a tile's distances are in `ds`, on
+// QUERIES of its queries at a time (`row` and the rows 8, 16, ... below it):
+// `row` is a query's ds row (CT distances, rows >= n at +inf), (Ld, Li) its
+// running list of k, ascending by (d, id); r0 the tile's first corpus row.
+// ---------------------------------------------------------------------------
+
+// K2: count-then-insert.  A ballot finds the tile's candidates below the
+// query's current k-th (d, id); only those are inserted.
+struct CountMerge {
+  static constexpr int QUERIES = 1;
+  __device__ __forceinline__ static void merge(const float* row, float* Ld, int* Li, int k, int r0, int n,
+                                               int lane) {
+#pragma unroll
+    for (int j = 0; j < CT / 32; ++j) {
+      const int c = lane + 32 * j;
+      const float cd = row[c];
+      const int ci = r0 + c;
+      const bool cand = r0 + c < n && pair_less(cd, ci, Ld[k - 1], Li[k - 1]);
+      unsigned mask = __ballot_sync(FULL, cand);
+      while (mask) {
+        const int src = __ffs(mask) - 1;
+        mask &= mask - 1;
+        const float vd = __shfl_sync(FULL, cd, src);
+        const int vi = __shfl_sync(FULL, ci, src);
+        warp_insert(Ld, Li, k, vd, vi, lane);
+      }
+    }
+  }
+};
+
+// K3: a compare-exchange network on 64-bit keys, (d's bits << 32) | id: d >= 0,
+// so the unsigned order is the (d, id) order, and an empty slot or a row >= n
+// is (+inf, -1), above every real candidate.  The tile's CT = 64 candidates
+// sit two a lane, element 2 lane + r in key r.  A bitonic sort orders them in
+// 21 stages: for each run size s = 2 .. 64, the flip stage (element e
+// against e ^ (s - 1)) and the half-cleaners e ^ j, j = s / 4 .. 1.  A stage
+// whose partner is in another lane is one 64-bit `__shfl_xor_sync` per key
+// (15 of the 21); the others stay in registers.  The merge then keeps the P
+// smallest of the list (padded to P = the power of two >= k with keys above
+// every other) and the sorted candidates: min(L[P-1-e], C[e]) is bitonic, and
+// log2 P half-cleaners sort it.  At P = 128 a lane holds four keys, elements
+// 2 lane + r and 64 + 2 lane + r.  Every stage runs whatever the data: no
+// early exit, as the TPU kernel's k passes (pallas_topk.py:113).
+using key64 = unsigned long long;
+constexpr key64 KEY_PAD = ~0ull;  // list slots >= k
+
+__device__ __forceinline__ key64 make_key(float d, int id) {
+  return (key64)__float_as_uint(d) << 32 | (uint32_t)id;
+}
+
+// the lower element of a pair keeps the smaller key
+__device__ __forceinline__ key64 keep(key64 v, key64 other, bool lower) {
+  return (other < v) == lower ? other : v;
+}
+
+__device__ __forceinline__ void cx(key64& a, key64& b) {
+  const key64 lo = a < b ? a : b;
+  b = a < b ? b : a;
+  a = lo;
+}
+
+// half-cleaner j over R keys a lane: element e against e ^ j
+template <int R>
+__device__ __forceinline__ void clean(key64* c, int j, int lane) {
+  if (R == 4 && j == 64) {
+    cx(c[0], c[R - 2]);
+    cx(c[1], c[R - 1]);
+  } else if (j == 1) {
+#pragma unroll
+    for (int r = 0; r < R; r += 2) cx(c[r], c[r + 1]);
+  } else {
+    const bool lower = (lane & (j / 2)) == 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) c[r] = keep(c[r], __shfl_xor_sync(FULL, c[r], j / 2), lower);
+  }
+}
+
+__host__ __device__ constexpr int log2_of(int p) { return p > 1 ? 1 + log2_of(p / 2) : 0; }
+
+// Queries a warp merges at once in K3: the stages of different queries are
+// independent, so a stage has 2 x NET_QUERIES keys a lane whose shuffle and
+// compare latencies overlap (on an H100 at k=10: 10.3 ms a 16384 x 56000 call
+// with one query at a time, 9.3 with two, 9.1 with four).
+constexpr int NET_QUERIES = 4;
+
+template <int P>
+struct NetworkMerge {
+  static constexpr int QUERIES = NET_QUERIES;  // queries q, q + 8, ... of the warp
+  static constexpr int R = P > 64 ? 4 : 2;     // keys a lane in the merge
+  static constexpr int LOG_P = log2_of(P), LOG_CT = log2_of(CT);
+
+  __device__ __forceinline__ static int element(int lane, int r) { return (r / 2) * 64 + 2 * lane + r % 2; }
+
+  __device__ __forceinline__ static void merge(const float* row, float* Ld, int* Li, int k, int r0, int n,
+                                               int lane) {
+    constexpr int QSTEP = THREADS / 32;  // between a warp's queries
+    key64 c[QUERIES][R];
+    const int i0 = r0 + 2 * lane;
+#pragma unroll
+    for (int t = 0; t < QUERIES; ++t) {
+      const float2 d2 = *reinterpret_cast<const float2*>(row + t * QSTEP * DS_STRIDE + 2 * lane);
+      c[t][0] = make_key(d2.x, i0 < n ? i0 : -1);
+      c[t][1] = make_key(d2.y, i0 + 1 < n ? i0 + 1 : -1);
+      cx(c[t][0], c[t][1]);
+    }
+    // sort the 64 candidates
+#pragma unroll
+    for (int ls = 2; ls <= LOG_CT; ++ls) {  // runs of s = 2^ls
+      const bool lower = (lane & (1 << (ls - 2))) == 0;
+#pragma unroll
+      for (int t = 0; t < QUERIES; ++t) {
+        const key64 p0 = __shfl_xor_sync(FULL, c[t][1], (1 << (ls - 1)) - 1);
+        const key64 p1 = __shfl_xor_sync(FULL, c[t][0], (1 << (ls - 1)) - 1);
+        c[t][0] = keep(c[t][0], p0, lower);
+        c[t][1] = keep(c[t][1], p1, lower);
+      }
+#pragma unroll
+      for (int lj = ls - 2; lj >= 0; --lj)
+#pragma unroll
+        for (int t = 0; t < QUERIES; ++t) clean<2>(c[t], 1 << lj, lane);
+    }
+    // merge with the list: the P smallest, bitonic, then sorted
+#pragma unroll
+    for (int t = 0; t < QUERIES; ++t)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= 2) c[t][r] = KEY_PAD;
+        const int e = element(lane, r), idx = P - 1 - e;
+        if (e < P && idx < k) {
+          const key64 l = make_key(Ld[t * QSTEP * k + idx], Li[t * QSTEP * k + idx]);
+          c[t][r] = l < c[t][r] ? l : c[t][r];
+        }
+      }
+#pragma unroll
+    for (int lj = LOG_P - 1; lj >= 0; --lj)
+#pragma unroll
+      for (int t = 0; t < QUERIES; ++t) clean<R>(c[t], 1 << lj, lane);
+    __syncwarp();  // every lane has read the lists
+#pragma unroll
+    for (int t = 0; t < QUERIES; ++t)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int e = element(lane, r);
+        if (e < k) {
+          Ld[t * QSTEP * k + e] = __uint_as_float((uint32_t)(c[t][r] >> 32));
+          Li[t * QSTEP * k + e] = (int)(uint32_t)c[t][r];
+        }
+      }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The tensor-core tile, shared by all four kernels; `Select` merges each
+// complete tile into the running lists.
+// ---------------------------------------------------------------------------
+
+template <typename T, typename Select>
+__device__ __forceinline__ void scan_body(const T* __restrict__ q,  // (B, D)
+                                          const T* __restrict__ x,  // (n, D)
+                                          int n, int B, int D, int k,
+                                          int* __restrict__ out_ids,    // (B, k)
+                                          float* __restrict__ out_d) {  // (B, k)
   using M = Mma<T>;
   using acc_t = typename M::acc_t;
   extern __shared__ float4 smem4[];
@@ -388,27 +547,8 @@ __device__ __forceinline__ void count_body(const T* __restrict__ q,  // (B, D)
     }
     __syncthreads();
 
-    // count-then-insert: a ballot finds the tile's candidates below the
-    // query's current k-th (d, id); only those are inserted
-    for (int qi = warp; qi < QB; qi += THREADS / 32) {
-      float* Ld = ld + qi * k;
-      int* Li = li + qi * k;
-#pragma unroll
-      for (int j = 0; j < CT / 32; ++j) {
-        const int row = lane + 32 * j;
-        const float cd = ds[qi * DS_STRIDE + row];
-        const int ci = r0 + row;
-        const bool cand = r0 + row < n && pair_less(cd, ci, Ld[k - 1], Li[k - 1]);
-        unsigned mask = __ballot_sync(FULL, cand);
-        while (mask) {
-          const int src = __ffs(mask) - 1;
-          mask &= mask - 1;
-          const float vd = __shfl_sync(FULL, cd, src);
-          const int vi = __shfl_sync(FULL, ci, src);
-          warp_insert(Ld, Li, k, vd, vi, lane);
-        }
-      }
-    }
+    for (int qi = warp; qi < QB; qi += THREADS / 32 * Select::QUERIES)
+      Select::merge(ds + qi * DS_STRIDE, ld + qi * k, li + qi * k, k, r0, n, lane);
   }
   cp_async_wait<0>();  // only empty groups remain
   store_lists(ld, li, q0, B, k, tid, out_ids, out_d);
@@ -417,244 +557,57 @@ __device__ __forceinline__ void count_body(const T* __restrict__ q,  // (B, D)
 __global__ void __launch_bounds__(THREADS, 2)
     flat_topk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ x, int n, int B,
                      int D, int k, int* __restrict__ out_ids, float* __restrict__ out_d) {
-  count_body<__nv_bfloat16>(q, x, n, B, D, k, out_ids, out_d);
+  scan_body<__nv_bfloat16, CountMerge>(q, x, n, B, D, k, out_ids, out_d);
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
     flat_topk_s8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ x, int n, int B, int D, int k,
                         int* __restrict__ out_ids, float* __restrict__ out_d) {
-  count_body<int8_t>(q, x, n, B, D, k, out_ids, out_d);
+  scan_body<int8_t, CountMerge>(q, x, n, B, D, k, out_ids, out_d);
 }
 
-int count_smem_bytes(int k) {
+// K3 / K3-s8: one instance per list size P = 1, 2, 4, ..., 128
+template <int P>
+__global__ void __launch_bounds__(THREADS, 2)
+    flat_topk_fixed_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ x, int n,
+                           int B, int D, int k, int* __restrict__ out_ids, float* __restrict__ out_d) {
+  scan_body<__nv_bfloat16, NetworkMerge<P>>(q, x, n, B, D, k, out_ids, out_d);
+}
+
+template <int P>
+__global__ void __launch_bounds__(THREADS, 2)
+    flat_topk_fixed_s8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ x, int n, int B, int D,
+                              int k, int* __restrict__ out_ids, float* __restrict__ out_d) {
+  scan_body<int8_t, NetworkMerge<P>>(q, x, n, B, D, k, out_ids, out_d);
+}
+
+template <typename T>
+using Kernel = void (*)(const T*, const T*, int, int, int, int, int*, float*);
+
+const Kernel<__nv_bfloat16> FIXED_BF16[] = {
+    flat_topk_fixed_kernel<1>,  flat_topk_fixed_kernel<2>,  flat_topk_fixed_kernel<4>,
+    flat_topk_fixed_kernel<8>,  flat_topk_fixed_kernel<16>, flat_topk_fixed_kernel<32>,
+    flat_topk_fixed_kernel<64>, flat_topk_fixed_kernel<128>};
+const Kernel<int8_t> FIXED_S8[] = {
+    flat_topk_fixed_s8_kernel<1>,  flat_topk_fixed_s8_kernel<2>,  flat_topk_fixed_s8_kernel<4>,
+    flat_topk_fixed_s8_kernel<8>,  flat_topk_fixed_s8_kernel<16>, flat_topk_fixed_s8_kernel<32>,
+    flat_topk_fixed_s8_kernel<64>, flat_topk_fixed_s8_kernel<128>};
+
+// log2 of the list size P, the power of two >= k (k in 1 .. KMAX)
+int list_log2(int k) {
+  int i = 0;
+  while ((1 << i) < k) ++i;
+  return i;
+}
+
+// Dynamic shared memory of one block, the same for all four kernels and
+// every D: the ring, ds, the norms and the running lists.
+int smem_bytes(int k) {
   return NST * SLOT + (int)sizeof(float) * (QB * DS_STRIDE + QB + CT + QB * k) + (int)sizeof(int) * QB * k;
 }
 
-// ---------------------------------------------------------------------------
-// K3 / K3-s8: the f32 tile
-// ---------------------------------------------------------------------------
-
-// Corpus / query element types: how many fit in 16 bytes, and their f32
-// values (exact for both).
 template <typename T>
-struct Elem;
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int PER16 = 8;
-  __device__ __forceinline__ static float value(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ __forceinline__ static void unpack(const uint4& raw, float* f) {
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 v = __bfloat1622float2(h2[j]);
-      f[2 * j] = v.x;
-      f[2 * j + 1] = v.y;
-    }
-  }
-};
-
-template <>
-struct Elem<int8_t> {
-  static constexpr int PER16 = 16;
-  __device__ __forceinline__ static float value(int8_t v) { return (float)v; }
-  __device__ __forceinline__ static void unpack(const uint4& raw, float* f) {
-    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) f[j] = (float)b[j];
-  }
-};
-
-// The block's shared-memory layout.
-struct Tile {
-  float* qs;  // [D][QB] query tile, transposed
-  float* xs;  // [DK][CT] corpus chunk, transposed
-  float* ds;  // [QB][CT] tile distances
-  float* qn;  // [QB]
-  float* xn;  // [CT]
-  float* ld;  // [QB][k] running top-k, ascending
-  int* li;
-};
-
-__device__ __forceinline__ Tile tile_layout(float* base, int D, int k) {
-  Tile s;
-  s.qs = base;
-  s.xs = s.qs + D * QB;
-  s.ds = s.xs + DK * CT;
-  s.qn = s.ds + QB * CT;
-  s.xn = s.qn + QB;
-  s.ld = s.xn + CT;
-  s.li = reinterpret_cast<int*>(s.ld + QB * k);
-  return s;
-}
-
-// Stage the block's QB queries (-> f32, transposed), their squared norms,
-// and empty running lists.
-template <typename T>
-__device__ void load_queries(const Tile& s, const T* __restrict__ q, int q0, int B, int D, int k,
-                             int tid) {
-  for (int i = tid; i < QB * D; i += THREADS) {
-    const int qi = i / D, c = i - qi * D;
-    s.qs[c * QB + qi] = (q0 + qi < B) ? Elem<T>::value(q[(size_t)(q0 + qi) * D + c]) : 0.f;
-  }
-  for (int i = tid; i < QB * k; i += THREADS) {
-    s.ld[i] = INFINITY;
-    s.li[i] = -1;
-  }
-  __syncthreads();
-  if (tid < QB) {
-    float acc = 0.f;
-    for (int c = 0; c < D; ++c) {
-      const float v = s.qs[c * QB + tid];
-      acc = fmaf(v, v, acc);
-    }
-    s.qn[tid] = acc;
-  }
-}
-
-// Distances of the QB queries to corpus rows r0 .. r0+CT into s.ds, clamped
-// at 0, rows >= n at +inf.  Ends with a barrier: s.ds is complete.
-template <typename T>
-__device__ void tile_distances(const Tile& s, const T* __restrict__ x, int n, int D, int r0,
-                               int tid) {
-  constexpr int PER16 = Elem<T>::PER16;
-  const int tx = tid & 15, ty = tid >> 4;  // rows 4tx.., queries 4ty..
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float xnorm = 0.f;
-
-  for (int c0 = 0; c0 < D; c0 += DK) {
-    __syncthreads();  // the previous chunk (and tile merge) is consumed
-    // stage rows r0..r0+CT, features c0..c0+DK: 16-byte loads, one row
-    // per thread, conflict-free transposed stores
-    for (int i = tid; i < CT * (DK / PER16); i += THREADS) {
-      const int row = i % CT, cc = (i / CT) * PER16;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + row < n)
-        raw = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(r0 + row) * D + c0 + cc));
-      float f[PER16];
-      Elem<T>::unpack(raw, f);
-#pragma unroll
-      for (int j = 0; j < PER16; ++j) s.xs[(cc + j) * CT + row] = f[j];
-    }
-    __syncthreads();
-    if (tid < CT) {
-      for (int c = 0; c < DK; ++c) {
-        const float v = s.xs[c * CT + tid];
-        xnorm = fmaf(v, v, xnorm);
-      }
-    }
-#pragma unroll 8
-    for (int c = 0; c < DK; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(&s.qs[(c0 + c) * QB + 4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&s.xs[c * CT + 4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-  if (tid < CT) s.xn[tid] = xnorm;
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = 4 * ty + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = 4 * tx + j;
-      float d = fmaxf((s.qn[qi] + s.xn[row]) - 2.f * acc[i][j], 0.f);
-      if (r0 + row >= n) d = INFINITY;
-      s.ds[qi * CT + row] = d;
-    }
-  }
-  __syncthreads();
-}
-
-// Fixed mode (K3): per tile and per query exactly k passes, each a warp
-// argmin by (d, id) over the tile's CT candidates, an insertion when it
-// beats the list's last entry, and the winner knocked out.  No pre-count.
-template <typename T>
-__device__ __forceinline__ void fixed_body(const T* __restrict__ q,  // (B, D)
-                                           const T* __restrict__ x,  // (n, D)
-                                           int n, int B, int D, int k,
-                                           int* __restrict__ out_ids,    // (B, k)
-                                           float* __restrict__ out_d) {  // (B, k)
-  extern __shared__ float4 smem4[];
-  const Tile s = tile_layout(reinterpret_cast<float*>(smem4), D, k);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * QB;
-  load_queries(s, q, q0, B, D, k, tid);
-
-  for (int r0 = 0; r0 < n; r0 += CT) {
-    tile_distances(s, x, n, D, r0, tid);
-    for (int qi = warp; qi < QB; qi += THREADS / 32) {
-      float* Ld = s.ld + qi * k;
-      int* Li = s.li + qi * k;
-      float cd[CT / 32];
-      int ci[CT / 32];
-#pragma unroll
-      for (int j = 0; j < CT / 32; ++j) {
-        const int row = lane + 32 * j;
-        const bool valid = r0 + row < n;
-        cd[j] = valid ? s.ds[qi * CT + row] : INFINITY;
-        ci[j] = valid ? r0 + row : INT_MAX;
-      }
-      for (int p = 0; p < k; ++p) {
-        float vd = cd[0];
-        int vi = ci[0];
-#pragma unroll
-        for (int j = 1; j < CT / 32; ++j)
-          if (pair_less(cd[j], ci[j], vd, vi)) {
-            vd = cd[j];
-            vi = ci[j];
-          }
-#pragma unroll
-        for (int off = 16; off; off >>= 1) {
-          const float od = __shfl_xor_sync(FULL, vd, off);
-          const int oi = __shfl_xor_sync(FULL, vi, off);
-          if (pair_less(od, oi, vd, vi)) {
-            vd = od;
-            vi = oi;
-          }
-        }
-        warp_insert(Ld, Li, k, vd, vi, lane);
-#pragma unroll
-        for (int j = 0; j < CT / 32; ++j)
-          if (ci[j] == vi) {
-            cd[j] = INFINITY;
-            ci[j] = INT_MAX;
-          }
-      }
-    }
-  }
-  store_lists(s.ld, s.li, q0, B, k, tid, out_ids, out_d);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    flat_topk_fixed_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ x, int n,
-                           int B, int D, int k, int* __restrict__ out_ids, float* __restrict__ out_d) {
-  fixed_body<__nv_bfloat16>(q, x, n, B, D, k, out_ids, out_d);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    flat_topk_fixed_s8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ x, int n, int B, int D,
-                              int k, int* __restrict__ out_ids, float* __restrict__ out_d) {
-  fixed_body<int8_t>(q, x, n, B, D, k, out_ids, out_d);
-}
-
-int fixed_smem_bytes(int D, int k) {
-  return (int)sizeof(float) * (D * QB + DK * CT + QB * CT + QB + CT + QB * k) +
-         (int)sizeof(int) * QB * k;
-}
-
-template <typename T>
-int launch(void (*kernel)(const T*, const T*, int, int, int, int, int*, float*), int smem, const void* q,
+int launch(Kernel<T> kernel, int smem, const void* q,
            const void* x, int n, int B, int D, int k, void* out_ids, void* out_d, void* stream) {
   if (k < 1 || k > KMAX || D % 64 != 0) return (int)cudaErrorInvalidValue;
   cudaError_t err =
@@ -674,35 +627,36 @@ extern "C" {
 // and every D) and of K3 / K3-s8.
 int expann_flat_topk_smem_bytes(int D, int k) {
   (void)D;
-  return count_smem_bytes(k);
+  return smem_bytes(k);
 }
 
-int expann_flat_topk_fixed_smem_bytes(int D, int k) { return fixed_smem_bytes(D, k); }
+int expann_flat_topk_fixed_smem_bytes(int D, int k) { return smem_bytes(k); }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  The
 // caller guarantees: D % 64 == 0, 1 <= k <= 128, rows 16-byte aligned.
 int expann_flat_topk_bf16(const void* q, const void* x, int n, int B, int D, int k,
                           void* out_ids, void* out_d, void* stream) {
-  return launch(flat_topk_kernel, count_smem_bytes(k), q, x, n, B, D, k, out_ids, out_d, stream);
+  return launch(flat_topk_kernel, smem_bytes(k), q, x, n, B, D, k, out_ids, out_d, stream);
 }
 
 // The fixed-pass kernel (K3); same contract.
 int expann_flat_topk_fixed_bf16(const void* q, const void* x, int n, int B, int D, int k,
                                 void* out_ids, void* out_d, void* stream) {
-  return launch(flat_topk_fixed_kernel, fixed_smem_bytes(D, k), q, x, n, B, D, k, out_ids, out_d, stream);
+  if (k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
+  return launch(FIXED_BF16[list_log2(k)], smem_bytes(k), q, x, n, B, D, k, out_ids, out_d, stream);
 }
 
 // K2-s8 and K3-s8: int8 codes for q and x; same contract (D % 64 == 0
 // keeps every row 16-byte aligned).
 int expann_flat_topk_s8(const void* q, const void* x, int n, int B, int D, int k, void* out_ids,
                         void* out_d, void* stream) {
-  return launch(flat_topk_s8_kernel, count_smem_bytes(k), q, x, n, B, D, k, out_ids, out_d, stream);
+  return launch(flat_topk_s8_kernel, smem_bytes(k), q, x, n, B, D, k, out_ids, out_d, stream);
 }
 
 int expann_flat_topk_fixed_s8(const void* q, const void* x, int n, int B, int D, int k,
                               void* out_ids, void* out_d, void* stream) {
-  return launch(flat_topk_fixed_s8_kernel, fixed_smem_bytes(D, k), q, x, n, B, D, k, out_ids, out_d,
-                stream);
+  if (k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
+  return launch(FIXED_S8[list_log2(k)], smem_bytes(k), q, x, n, B, D, k, out_ids, out_d, stream);
 }
 
 const char* expann_error_string(int code) {

@@ -8,12 +8,15 @@ with all sums in f32.  A bf16 corpus takes any float query and rounds it
 to bf16; an int8 corpus (centered codes from ``quantize_corpus_i8``) needs
 int8 queries (``quantize_query_i8``), as the JAX launcher asserts, and its
 distances are exact integers (every partial sum stays below 2^24).  On a
-CUDA tensor it launches a hand-written kernel of ``csrc/flat_topk.cu``:
-the count-then-insert kernel (``mode="count"``, the default; distance
-tiles on the tensor cores) or the fixed k-pass kernel (``mode="fixed"``;
-an f32 FMA tile), each in a bf16 and an s8 version; both modes compute the
-same function.  On a CPU tensor it runs
-``flat_topk_plain``, the plain PyTorch version of all four.
+CUDA tensor it launches a hand-written kernel of ``csrc/flat_topk.cu``,
+each in a bf16 and an s8 version, all four on one tensor-core distance
+tile: the count-then-insert kernel (``mode="count"``, the default: a ballot
+admits only the candidates below a query's k-th) or the fixed-pass kernel
+(``mode="fixed"``, the counterpart of the TPU kernel's k passes per tile: a
+compare-exchange network that sorts each tile's 64 candidates and merges
+them into the list, the same stages whatever the data).  Both modes
+compute the same distances and return the same ids.  On a CPU tensor it
+runs ``flat_topk_plain``, the plain PyTorch version of all four.
 
 The selection is exact: the TPU kernel's 128-lane pooling and packed keys
 are not reproduced, so both versions agree with the exact oracle
@@ -135,8 +138,9 @@ def flat_topk_cuda(q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tens
 
 
 def flat_topk_fixed_cuda(q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the fixed k-pass kernel (K3, or K3-s8 on an int8 corpus;
-    ``csrc/flat_topk.cu``) on CUDA tensors."""
+    """Launch the fixed-pass kernel (K3, or K3-s8 on an int8 corpus;
+    ``csrc/flat_topk.cu``: K2's tile, a compare-exchange network) on CUDA
+    tensors."""
     return _launch("flat_topk_fixed", q, x, k)
 
 

@@ -40,27 +40,49 @@ def test_kernels_build(dev):
     assert lib.expann_flat_topk_smem_bytes(128, 10) > 0
 
 
-@pytest.mark.parametrize("mode", ["count", "fixed"])
-@pytest.mark.parametrize(
-    "n,B,k,D",
-    [(5000, 300, 10, 128), (777, 70, 128, 128), (64, 5, 100, 128), (4097, 1, 10, 128), (1000, 37, 30, 64),
-     (3001, 129, 1, 256), (200, 65, 128, 256), (100, 3, 128, 64)],
-)
-def test_flat_topk_matches_plain(dev, n, B, k, D, mode):
-    """K2 / K3 against the plain version: n and B off the tile sizes (64 rows,
-    64 queries), B = 1, D in {64, 128, 256} (256: two ring chunks per tile),
-    k up to 128 and above n, duplicated corpus rows (exact ties) and queries
-    equal to corpus rows."""
-    rng = np.random.default_rng(n + D)
+FLAT_BF16_SHAPES = [(5000, 300, 10, 128), (777, 70, 128, 128), (64, 5, 100, 128), (4097, 1, 10, 128),
+                    (1000, 37, 30, 64), (3001, 129, 1, 256), (200, 65, 128, 256), (100, 3, 128, 64)]
+FLAT_S8_SHAPES = [(5000, 301, 30, 128), (3001, 129, 1, 128), (777, 71, 128, 128), (64, 5, 100, 128),
+                  (4097, 1, 10, 128), (1000, 37, 30, 64), (2000, 65, 10, 256), (300, 200, 128, 512)]
+FLAT_LAUNCHES = {("count", False): "flat_topk", ("fixed", False): "flat_topk_fixed",
+                 ("count", True): "flat_topk_s8", ("fixed", True): "flat_topk_fixed_s8"}
+
+
+def _flat_bf16_inputs(dev, n, B, D, seed):
+    """A bf16 corpus with duplicated rows (exact ties) and f32 queries, a
+    third of them equal to corpus rows."""
+    rng = np.random.default_rng(seed)
     xh = rng.standard_normal((n, D)).astype(np.float32)
     xh[n // 2 : n // 2 + n // 8] = xh[: n // 8]
     qh = rng.standard_normal((B, D)).astype(np.float32)
-    qh[: B // 3] = xh[n // 4 : n // 4 + B // 3]
-    x = torch.from_numpy(xh).to(dev, torch.bfloat16)
-    q = torch.from_numpy(qh).to(dev)
-    before = _kernels.launches["flat_topk" if mode == "count" else "flat_topk_fixed"]
+    m = min(B // 3, n - n // 4)
+    qh[:m] = xh[n // 4 : n // 4 + m]
+    return torch.from_numpy(qh).to(dev), torch.from_numpy(xh).to(dev, torch.bfloat16)
+
+
+def _flat_s8_inputs(dev, n, B, D, seed):
+    """int8 codes over the full range with duplicated rows, a third of the
+    queries equal to corpus rows."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-127, 128, (n, D)).astype(np.int8)
+    x[n // 2 : n // 2 + n // 8] = x[: n // 8]
+    q = rng.integers(-127, 128, (B, D)).astype(np.int8)
+    m = min(B // 3, n - n // 4)
+    q[:m] = x[n // 4 : n // 4 + m]
+    return torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+
+
+def _flat_launch(q, x, k, mode):
+    """flat_topk on the card; asserts that it launched its kernel once."""
+    name = FLAT_LAUNCHES[mode, x.dtype == torch.int8]
+    before = _kernels.launches[name]
     ids, d = flat_topk(q, x, k, mode=mode)
-    assert _kernels.launches["flat_topk" if mode == "count" else "flat_topk_fixed"] == before + 1
+    assert _kernels.launches[name] == before + 1
+    return ids, d
+
+
+def _assert_bf16_matches_plain(q, x, k, ids, d):
+    n = x.shape[0]
     pids, pd = flat_topk_plain(q, x, k)
     torch.cuda.synchronize()
     # f32 sums in another order: distances agree to a few ulps of |x|^2 ~ 2D
@@ -78,32 +100,115 @@ def test_flat_topk_matches_plain(dev, n, B, k, D, mode):
         assert bool((ids[:, n:] == -1).all()) and bool(torch.isinf(d[:, n:]).all())
 
 
+def _assert_s8_identical_to_plain(q, x, k, ids, d):
+    pids, pd = flat_topk_plain(q, x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, pd), float((d - pd).abs().nan_to_num().max())
+    assert torch.equal(ids, pids), int((ids != pids).sum())
+
+
 @pytest.mark.parametrize("mode", ["count", "fixed"])
-@pytest.mark.parametrize(
-    "n,B,k,D",
-    [(5000, 301, 30, 128), (3001, 129, 1, 128), (777, 71, 128, 128), (64, 5, 100, 128), (4097, 1, 10, 128),
-     (1000, 37, 30, 64), (2000, 65, 10, 256), (300, 200, 128, 512)],
-)
+@pytest.mark.parametrize("n,B,k,D", FLAT_BF16_SHAPES)
+def test_flat_topk_matches_plain(dev, n, B, k, D, mode):
+    """K2 / K3 against the plain version: n and B off the tile sizes (64 rows,
+    64 queries), B = 1, D in {64, 128, 256} (256: two ring chunks per tile),
+    k up to 128 and above n, duplicated corpus rows (exact ties) and queries
+    equal to corpus rows."""
+    q, x = _flat_bf16_inputs(dev, n, B, D, seed=n + D)
+    ids, d = _flat_launch(q, x, k, mode)
+    _assert_bf16_matches_plain(q, x, k, ids, d)
+
+
+@pytest.mark.parametrize("mode", ["count", "fixed"])
+@pytest.mark.parametrize("n,B,k,D", FLAT_S8_SHAPES)
 def test_flat_topk_s8_identical_to_plain(dev, n, B, k, D, mode):
     """K2-s8 / K3-s8 against the plain version on int8 codes over the full
     range, with duplicated rows (exact integer ties), n and B off the tile
     sizes, D in {64, 128, 256, 512} (512: two ring chunks per tile):
     distances are exact integers on both sides and ties go by id, so ids and
     distances are identical."""
-    rng = np.random.default_rng(n + k + D)
-    x = rng.integers(-127, 128, (n, D)).astype(np.int8)
-    x[n // 2 : n // 2 + n // 8] = x[: n // 8]
-    q = rng.integers(-127, 128, (B, D)).astype(np.int8)
-    q[: B // 3] = x[n // 4 : n // 4 + B // 3]
-    xt, qt = torch.from_numpy(x).to(dev), torch.from_numpy(q).to(dev)
-    name = "flat_topk_s8" if mode == "count" else "flat_topk_fixed_s8"
-    before = _kernels.launches[name]
-    ids, d = flat_topk(qt, xt, k, mode=mode)
-    assert _kernels.launches[name] == before + 1
-    pids, pd = flat_topk_plain(qt, xt, k)
+    q, x = _flat_s8_inputs(dev, n, B, D, seed=n + k + D)
+    ids, d = _flat_launch(q, x, k, mode)
+    _assert_s8_identical_to_plain(q, x, k, ids, d)
+
+
+@pytest.mark.parametrize("s8", [False, True], ids=["bf16", "s8"])
+@pytest.mark.parametrize("mode", ["count", "fixed"])
+@pytest.mark.parametrize("D", [64, 128, 256, 512])
+@pytest.mark.parametrize("k", [1, 10, 16, 17, 30, 32, 33, 64, 65, 100, 128])
+def test_flat_topk_over_k_and_width(dev, k, D, mode, s8):
+    """Every k against every width, in both modes and both types: k on both
+    sides of the powers of two that size K3's merge network (the running
+    list padded to 1, 2, 4, ..., 128 slots), rows from a quarter of a
+    256-byte ring chunk (s8, D=64) to four (bf16, D=512)."""
+    n, B = 2000, 131
+    if s8:
+        q, x = _flat_s8_inputs(dev, n, B, D, seed=k + D)
+        ids, d = _flat_launch(q, x, k, mode)
+        _assert_s8_identical_to_plain(q, x, k, ids, d)
+    else:
+        q, x = _flat_bf16_inputs(dev, n, B, D, seed=k + D)
+        ids, d = _flat_launch(q, x, k, mode)
+        _assert_bf16_matches_plain(q, x, k, ids, d)
+
+
+@pytest.mark.parametrize("s8", [False, True], ids=["bf16", "s8"])
+@pytest.mark.parametrize("mode", ["count", "fixed"])
+@pytest.mark.parametrize("n,k", [(1000, 10), (300, 128), (100, 128)])
+def test_flat_topk_all_rows_equal(dev, n, k, mode, s8):
+    """Every corpus row the same, so every candidate of every tile ties:
+    the distances of a query are one value and the ids are 0, 1, ... in
+    order (ties by id), then -1 / +inf past n."""
+    rng = np.random.default_rng(n + k)
+    D, B = 128, 67
+    if s8:
+        x = torch.from_numpy(np.repeat(rng.integers(-127, 128, (1, D)), n, 0).astype(np.int8)).to(dev)
+        q = torch.from_numpy(rng.integers(-127, 128, (B, D)).astype(np.int8)).to(dev)
+    else:
+        x = torch.from_numpy(np.repeat(rng.standard_normal((1, D)), n, 0).astype(np.float32)).to(dev, torch.bfloat16)
+        q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
+    ids, d = _flat_launch(q, x, k, mode)
     torch.cuda.synchronize()
-    assert torch.equal(d, pd), float((d - pd).abs().nan_to_num().max())
-    assert torch.equal(ids, pids), int((ids != pids).sum())
+    kk = min(k, n)
+    want = torch.arange(kk, dtype=torch.int32, device=dev).expand(B, kk)
+    assert torch.equal(ids[:, :kk], want)
+    assert bool((d[:, :kk] == d[:, :1]).all())
+    assert bool((ids[:, kk:] == -1).all()) and bool(torch.isinf(d[:, kk:]).all())
+    if s8:
+        _assert_s8_identical_to_plain(q, x, k, ids, d)
+    else:  # the ids are checked above; the plain version's product may round its columns apart
+        torch.testing.assert_close(d[:, :kk], flat_topk_plain(q, x, k)[1][:, :kk], rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("s8", [False, True], ids=["bf16", "s8"])
+@pytest.mark.parametrize("mode", ["count", "fixed"])
+@pytest.mark.parametrize("n,k", [(1, 1), (1, 10), (17, 10), (63, 30), (63, 128), (40, 33)])
+def test_flat_topk_corpus_below_one_tile(dev, n, k, mode, s8):
+    """n < 64: the only tile is ragged, and k may exceed n (id -1, +inf)."""
+    B, D = 70, 64
+    if s8:
+        q, x = _flat_s8_inputs(dev, n, B, D, seed=n + k)
+        ids, d = _flat_launch(q, x, k, mode)
+        _assert_s8_identical_to_plain(q, x, k, ids, d)
+    else:
+        q, x = _flat_bf16_inputs(dev, n, B, D, seed=n + k)
+        ids, d = _flat_launch(q, x, k, mode)
+        _assert_bf16_matches_plain(q, x, k, ids, d)
+
+
+@pytest.mark.parametrize(
+    "s8,n,B,k,D", [(False, *shape) for shape in FLAT_BF16_SHAPES] + [(True, *shape) for shape in FLAT_S8_SHAPES]
+)
+def test_flat_topk_fixed_identical_to_count(dev, s8, n, B, k, D):
+    """K3 and K2 (K3-s8 and K2-s8) share one distance tile, so they compute
+    the same distances bit for bit and, ordering by (d, id), return the very
+    same ids and distances."""
+    q, x = (_flat_s8_inputs if s8 else _flat_bf16_inputs)(dev, n, B, D, seed=n + k + D + 1)
+    ids_c, d_c = _flat_launch(q, x, k, "count")
+    ids_f, d_f = _flat_launch(q, x, k, "fixed")
+    torch.cuda.synchronize()
+    assert torch.equal(d_f, d_c), float((d_f - d_c).abs().nan_to_num().max())
+    assert torch.equal(ids_f, ids_c), int((ids_f != ids_c).sum())
 
 
 def _random_graph(dev, n, R, d, seed):
