@@ -6,7 +6,8 @@ Phases, one line each:
   2. build         nvcc builds the kernels of expann_tpu_torch/csrc for sm_90a
                    (registers and spills from ptxas, the most of any template
                    instance, shared memory per launch; no flat top-k kernel,
-                   K2, K2-s8, K3 or K3-s8, may spill);
+                   K2, K2-s8, K3 or K3-s8, and not the block scorer K4, may
+                   spill);
   3. flat_topk     the count-mode flat top-k kernel (K2) against its plain
                    version, random bf16 corpus n=56000, d=128, 4096 queries,
                    k=10; flat_fixed: the fixed-pass kernel (K3) the same way
@@ -24,7 +25,10 @@ Phases, one line each:
                    graph at ef=120, from the same seeded beams;
   6. packed_score  the block scorer (K4) against its plain version on that
                    graph: the 400 queries, E=2 seeded selections of real nodes
-                   and sentinels, topt 0 and 8;
+                   and sentinels, topt 0 and 8; then negative partial
+                   distances (each query 3x a row of its first node) and
+                   all-tie blocks (4096 copies of one integer row, integer
+                   queries: distances and ids identical);
   7. small_batch   the per-iteration route at ef=120: the 400 queries one per
                    call (as query_k calls) and in 32-query calls, identical
                    ids, recall@10;
@@ -37,6 +41,8 @@ Phases, one line each:
                    on the flat engine's corpus) with phase 3's limits, and
                    each flat kernel's time is printed as a factor of the
                    library chain's (vs_library > 1: the kernel is faster);
+                   K4 likewise on the inputs it times at B = 1, 32, 16384,
+                   with phase 6's limits;
   9. canonical_quantized  quantized serving on the canonical config: the flat
                    engine mode="fused_i8" on both query wires and in both
                    top-k modes, then bench.py's flow on the graph engine built
@@ -250,6 +256,46 @@ def hold_flat_bf16(torch, label: str, fn, q, x, k: int) -> float:
     check(tie_err <= 1e-2, f"{label} k={k}: a differing id is not a tie ({tie_err})")
     phase(label, n=x.shape[0], B=q.shape[0], k=k, max_abs_err=f"{err:.3e}",
           differing_ids=int(mism.sum()), worst_tie_gap=f"{tie_err:.3e}")
+    return err
+
+
+def hold_packed(torch, label: str, args, sel, q, t: int, exact: bool = False, min_negative: int = 0) -> float:
+    """K4 against its plain version on one input: the same +inf pattern,
+    distances within D_RTOL / D_ATOL (identical with ``exact``), ids
+    identical at topt=0 and with ``exact``, else differing only on a tie
+    (each kernel id's distance, looked up in its node's full row, is the
+    one the kernel reports); with topt > 0, every pass past a node's finite
+    slots gives the node's lane-0 id.  Returns the largest |d_kernel - d_plain|."""
+    from expann_tpu_torch.ops.packed import packed_score_cuda, packed_score_plain
+
+    B, E = sel.shape
+    kd, ki = packed_score_cuda(*args, sel, q, t)
+    pd, pi = packed_score_plain(*args, sel, q, t)
+    full_d, full_i = packed_score_plain(*args, sel, q, 0)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(pd)
+    check(bool(torch.equal(torch.isfinite(kd), fin)), f"packed_score {label} topt={t}: +inf slots differ")
+    err = float((kd - pd).abs()[fin].max())
+    check(bool(torch.allclose(kd[fin], pd[fin], rtol=D_RTOL, atol=D_ATOL)),
+          f"packed_score {label} topt={t}: distances differ by {err}")
+    check(not exact or bool(torch.equal(kd[fin], pd[fin])), f"packed_score {label} topt={t}: distances not identical")
+    check((t != 0 and not exact) or bool(torch.equal(ki, pi)), f"packed_score {label} topt={t}: ids differ")
+    n_neg = int((pd < 0).sum())
+    check(n_neg >= min_negative, f"packed_score {label}: {n_neg} negative distances, expected >= {min_negative}")
+    w = t or full_i.shape[1] // E
+    full_d, full_i = full_d.view(B, E, -1), full_i.view(B, E, -1)
+    kd3, ki3 = kd.view(B, E, w), ki.view(B, E, w)
+    ok = torch.isfinite(kd3)
+    hit = (full_i[:, :, None, :] == ki3[:, :, :, None]) & ok[:, :, :, None]
+    looked_up = torch.where(hit, full_d[:, :, None, :], 0.0).sum(-1)
+    tie_gap = float((looked_up - kd3).abs()[ok].max())
+    check(tie_gap <= D_ATOL + D_RTOL * 512, f"packed_score {label} topt={t}: a differing id is not a tie ({tie_gap})")
+    lane0 = args[2][sel.long()][:, :, :1].expand(B, E, w)
+    check(t == 0 or bool(torch.equal(ki3[~ok], lane0[~ok])),
+          f"packed_score {label} topt={t}: an exhausted pass is not lane 0")
+    phase("packed_score", input=label, B=B, E=E, topt=t, sentinel_pairs=int((sel == args[0].shape[0] - 1).sum()),
+          negative_slots=n_neg, max_abs_err=f"{err:.3e}", differing_ids=int((ki != pi).sum()),
+          worst_tie_gap=f"{tie_gap:.3e}")
     return err
 
 
@@ -712,7 +758,7 @@ def main() -> None:
     from expann_tpu_torch.models.search import entry_beam, rerank
     from expann_tpu_torch.ops import _kernels
     from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain, topt_for
-    from expann_tpu_torch.ops.packed import packed_score_cuda, packed_score_plain
+    from expann_tpu_torch.ops.packed import build_packed, packed_score_cuda, packed_score_plain
     from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_fixed_cuda, flat_topk_plain
     from expann_tpu_torch.utils.profiling import card_name, event_ms
 
@@ -735,7 +781,7 @@ def main() -> None:
         "flat_topk_kernel": lib.expann_flat_topk_smem_bytes(D, K),
         "flat_topk_fixed_kernel": lib.expann_flat_topk_fixed_smem_bytes(D, K),
         "fused_search_kernel": lib.expann_fused_search_smem_bytes(D, 128, 128, GRAPH_CFG["query_expand"], topt),
-        "packed_score_kernel": lib.expann_packed_score_smem_bytes(D, 128),
+        "packed_score_kernel": lib.expann_packed_score_smem_bytes(D, 128, 128),
         "flat_topk_s8_kernel": lib.expann_flat_topk_smem_bytes(D, 3 * K),
         "flat_topk_fixed_s8_kernel": lib.expann_flat_topk_fixed_smem_bytes(D, 3 * K),
         "fused_search_s8_kernel": lib.expann_fused_search_smem_bytes(D, 128, 128, GRAPH_CFG["query_expand"], topt),
@@ -748,9 +794,10 @@ def main() -> None:
         phase("build", kernel=kname, arch=info["arch"], instances=info["instances"], registers=info["registers"],
               spill_bytes=info["spill_bytes"], dynamic_smem_bytes=smem[kname])
     phase("build", seconds=f"{build_s:.3f}", source=os.path.join("expann_tpu_torch", "csrc"))
-    flat_kernels = ("flat_topk_kernel", "flat_topk_s8_kernel", "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel")
-    check(all(ptx[name]["spill_bytes"] == 0 for name in flat_kernels),
-          f"a flat top-k kernel spills registers: {[(name, ptx[name]) for name in flat_kernels]}")
+    no_spill = ("flat_topk_kernel", "flat_topk_s8_kernel", "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel",
+                "packed_score_kernel")
+    check(all(ptx[name]["spill_bytes"] == 0 for name in no_spill),
+          f"a kernel that may not spill spills registers: {[(name, ptx[name]) for name in no_spill]}")
 
     # ---- 3. flat_topk (K2) and flat_fixed (K3) against the plain version ---
     rng = np.random.default_rng(0)
@@ -849,32 +896,35 @@ def main() -> None:
     sel = torch.from_numpy(rng.integers(0, N, (M_QUERIES, 2)).astype(np.int32)).to(dev)
     sel[::5, 1] = N  # sentinel selections, as done queries and exhausted beams give
     sel[::17, 0] = N
-    full_d, full_i = packed_score_plain(*args, sel, q400, 0)
-    full_d, full_i = full_d.view(M_QUERIES, 2, -1), full_i.view(M_QUERIES, 2, -1)
     ps_err = 0.0
     for t in (0, GRAPH_CFG["packed_topt"]):
-        kd4, ki4 = packed_score_cuda(*args, sel, q400, t)
-        pd4, pi4 = packed_score_plain(*args, sel, q400, t)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(pd4)
-        check(bool(torch.equal(torch.isfinite(kd4), fin)), f"packed_score topt={t}: +inf slots differ")
-        err = float((kd4 - pd4).abs()[fin].max())
-        ps_err = max(ps_err, err)
-        check(bool(torch.allclose(kd4[fin], pd4[fin], rtol=D_RTOL, atol=D_ATOL)),
-              f"packed_score topt={t}: distances differ by {err}")
-        # an id may differ only on a tie: each kernel id's distance, looked
-        # up in its node's full row, is the distance the kernel reports
-        w = t or full_i.shape[2]
-        kd3, ki3 = kd4.view(M_QUERIES, 2, w), ki4.view(M_QUERIES, 2, w)
-        hit = (full_i[:, :, None, :] == ki3[:, :, :, None]) & torch.isfinite(kd3)[:, :, :, None]
-        looked_up = torch.where(hit, full_d[:, :, None, :], 0.0).sum(-1)
-        ok = torch.isfinite(kd3)
-        tie_gap = float((looked_up - kd3).abs()[ok].max())
-        check(tie_gap <= D_ATOL + D_RTOL * 512, f"packed_score topt={t}: a differing id is not a tie ({tie_gap})")
-        check(t != 0 or bool(torch.equal(ki4, pi4)), "packed_score topt=0: ids differ")
-        phase("packed_score", B=M_QUERIES, E=2, topt=t, sentinel_pairs=int((sel == N).sum()),
-              max_abs_err=f"{err:.3e}", differing_ids=int((ki4 != pi4).sum()), worst_tie_gap=f"{tie_gap:.3e}")
-    del full_d, full_i
+        ps_err = max(ps_err, hold_packed(torch, "canonical", args, sel, q400, t))
+    # negative partial distances: each query a scaled copy of one of its
+    # first node's rows, so 2 q.x > |x|^2 there (no |q|^2, no clamp)
+    sel_neg = sel.clone()
+    sel_neg[:, 0] = torch.where(sel[:, 0] == N, 0, sel[:, 0])
+    qneg = 3.0 * g.packed[sel_neg[:, 0].long(), 1].float()
+    for t in (0, GRAPH_CFG["packed_topt"]):
+        ps_err = max(ps_err, hold_packed(torch, "negative", args, sel_neg, qneg, t, min_negative=M_QUERIES // 2))
+    # all-tie blocks: 4096 copies of one integer-valued row, each node with
+    # 120 distinct random neighbours (every seventh with a sentinel tail),
+    # integer queries: every distance exact, every finite slot of a node
+    # tied, so the ids must be the plain version's, in lane order
+    nt = 4096
+    tie_rows = torch.zeros((nt + 1, D), device=dev)
+    tie_rows[:nt] = torch.round(4.0 * q400[0]).clamp(-8, 8)
+    tie_norms = (tie_rows * tie_rows).sum(1)
+    tie_norms[nt] = float("inf")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    adj_t = torch.argsort(torch.rand((nt + 1, nt), generator=gen, device=dev), dim=1)[:, :120].to(torch.int32)
+    adj_t[::7, -9:] = nt
+    adj_t[nt] = nt
+    tie_args = build_packed(tie_rows, tie_norms, adj_t)
+    sel_t = torch.where(sel == N, nt, sel % nt).to(torch.int32)
+    qtie = torch.round(2.0 * q400).clamp(-4, 4)
+    for t in (0, GRAPH_CFG["packed_topt"]):
+        ps_err = max(ps_err, hold_packed(torch, "all_tie", tie_args, sel_t, qtie, t, exact=True))
+    del tie_args, adj_t
 
     # ---- 7. the per-iteration route: small batches -------------------------
     graph.set_ef_search(120)
@@ -983,6 +1033,7 @@ def main() -> None:
             dots = torch.bmm(blk, qq, out_dtype=torch.float32)[:, :, 0].view(B, 2, rs)
             return torch.topk(g.packed_norms[s][:, :, :rs] - 2.0 * dots, t4, dim=2, largest=False)
 
+        ps_err = max(ps_err, hold_packed(torch, "timed", args, sel, qs, t4))
         ms = event_ms(lambda: packed_score_cuda(*args, sel, qs, t4), reps=reps)
         plain_ms = event_ms(lambda: packed_score_plain(*args, sel, qs, t4), reps=max(2, reps // 4))
         lib_ms = event_ms(k4_chain, reps=reps)
@@ -992,8 +1043,8 @@ def main() -> None:
             times["packed_score"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                          bound_ms=k4_bound[0], bound_by=k4_bound[1])
         phase("times", kernel="packed_score", B=B, E=2, topt=t4, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-              library_ms=f"{lib_ms:.4f}", bound_ms=f"{k4_bound[0]:.5f}", bound_by=k4_bound[1],
-              achieved_tb_per_s=f"{pairs * rs * D * 2 / (ms * 1e-3) / 1e12:.3f}", card=card)
+              library_ms=f"{lib_ms:.4f}", vs_library=f"{lib_ms / ms:.2f}x", bound_ms=f"{k4_bound[0]:.5f}",
+              bound_by=k4_bound[1], achieved_tb_per_s=f"{pairs * rs * D * 2 / (ms * 1e-3) / 1e12:.3f}", card=card)
 
     # ---- 9-12. quantized serving ------------------------------------------
     del args  # the bf16 layout: the flip below drops it from the graph

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "expann_flat_topk_fixed_smem_bytes": [_I, _I],
     "expann_fused_search_smem_bytes": [_I] * 5,
     "expann_packed_score_bf16": [_P] * 7 + [_I] * 7 + [_P],
-    "expann_packed_score_smem_bytes": [_I, _I],
+    "expann_packed_score_smem_bytes": [_I, _I, _I],
     "expann_smem_optin": [],
     "expann_probe_fused": [_P] * 4 + [_I] * 2 + [_P],
     "expann_block_gather": [_P] * 4 + [_I] * 4 + [_P],

@@ -26,11 +26,15 @@ iteration of the per-iteration beam search (models/search.py
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
 from expann_tpu_torch.ops import _kernels
+
+PACKED_SCORE_MAX_RT = 2048  # the kernel sorts at most 16 keys a thread of 128
+
 
 def packed_widths(r: int, align: int = 16) -> Tuple[int, int]:
     """``(RS, R_tile)`` for an adjacency of width ``r``; blocks of s8 codes
@@ -141,6 +145,14 @@ def packed_score_plain(
     return d.reshape(B, -1), ids.reshape(B, -1)
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(D: int, RS: int, Rt: int) -> Tuple[int, int]:
+    """The block scorer's shared memory at these widths, and the card's
+    limit per block."""
+    lib = _kernels.library()
+    return lib.expann_packed_score_smem_bytes(D, RS, Rt), lib.expann_smem_optin()
+
+
 def packed_score_cuda(
     packed: torch.Tensor,
     packed_norms: torch.Tensor,
@@ -150,7 +162,10 @@ def packed_score_cuda(
     topt: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the block scorer (``csrc/packed_score.cu``) on CUDA tensors.
-    ``sel`` must hold node ids in ``[0, N]``; the kernel does not check."""
+    ``sel`` must hold node ids in ``[0, N]``; the kernel does not check.
+    Raises ValueError on a shape the kernel does not take: R_tile above
+    ``PACKED_SCORE_MAX_RT``, or widths whose staging needs more shared
+    memory than a block may use (D above ~6000 at R_tile = 128)."""
     device = packed.device
     q = q.float().contiguous()
     for t, name, dtype in (
@@ -168,15 +183,18 @@ def packed_score_cuda(
         raise ValueError("packed_norms / packed_ids must be (N+1, R_tile) with R_tile >= RS")
     if q.shape != (B, D):
         raise ValueError(f"q {tuple(q.shape)} does not match ({B}, {D})")
-    if D % 8 or RS % 16 or not 0 <= topt <= Rt:
+    if D % 8 or RS % 16 or RS == 0 or not 0 <= topt <= Rt or Rt > PACKED_SCORE_MAX_RT:
         raise ValueError(f"unsupported shape: D={D} RS={RS} topt={topt} R_tile={Rt}")
+    smem, allowed = _smem_bytes(D, RS, Rt)
+    if smem > allowed:
+        raise ValueError(f"packed_score at D={D} RS={RS} R_tile={Rt} needs {smem} bytes of shared memory; "
+                         f"a block may use {allowed}")
     K = topt or Rt
     out_d = torch.empty((B, E * K), dtype=torch.float32, device=device)
     out_i = torch.empty((B, E * K), dtype=torch.int32, device=device)
     if B * E == 0:
         return out_d, out_i
-    lib = _kernels.library()
-    code = lib.expann_packed_score_bf16(
+    code = _kernels.library().expann_packed_score_bf16(
         packed.data_ptr(), packed_norms.data_ptr(), packed_ids.data_ptr(), sel.data_ptr(),
         q.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
         B, E, D, RS, Rt, int(topt), n1 - 1,

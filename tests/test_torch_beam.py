@@ -63,13 +63,15 @@ def index(data, tmp_path_factory):
     return path, jg, tg
 
 
-def _toy_packed(dtype, seed):
+def _toy_packed(dtype, seed, vecs=None):
     """n=300 rows of D=32 padded to 128, r=40 (RS=48 < R_tile=128), with
-    short rows (sentinel tails) and a few rows of three neighbours."""
+    short rows (sentinel tails) and a few rows of three neighbours; the rows
+    are N(0, 1) unless ``vecs`` (301, 128) gives them, sentinel row last."""
     n, r = 300, 40
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((n, D)).astype(np.float32)
-    vecs = np.concatenate([np.pad(x, ((0, 0), (0, 128 - D))), np.zeros((1, 128), np.float32)])
+    if vecs is None:
+        vecs = np.concatenate([np.pad(x, ((0, 0), (0, 128 - D))), np.zeros((1, 128), np.float32)])
     norms = np.concatenate([(vecs[:n] ** 2).sum(1), [np.inf]]).astype(np.float32)
     adj = np.stack([rng.choice(n, size=r, replace=False) for _ in range(n)] + [np.full(r, n)]).astype(np.int32)
     adj[::7, -9:] = n
@@ -80,20 +82,14 @@ def _toy_packed(dtype, seed):
     return rng, n, t, j
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("topt", [0, 8])
-@pytest.mark.parametrize("E", [1, 2, 4])
-def test_packed_score_matches_jax_kernel(dtype, topt, E):
-    """Same packed arrays, selections and queries through K4's plain version
-    and the Pallas kernel in interpret mode: ids identical (including the
+def _hold_to_jax_kernel(t, j, sel, q, topt):
+    """K4's plain version against the Pallas kernel in interpret mode on the
+    same packed arrays, selections and queries: ids identical (including the
     lane-0 id of passes past a row's finite slots), distances within the
-    tolerance of tests/test_pallas_beam.py (sums in another order)."""
-    rng, n, (packed, pn, pi), (jp, ja) = _toy_packed(dtype, seed=E + topt)
-    B = 8
-    sel = rng.integers(0, n + 1, (B, E)).astype(np.int32)
-    sel[::3, -1] = n  # sentinel selections
-    sel[1, 0] = 0  # a row of three neighbours
-    q = np.pad(rng.standard_normal((B, D)).astype(np.float32), ((0, 0), (0, 128 - D)))
+    tolerance of tests/test_pallas_beam.py (sums in another order).  Returns
+    the plain version's ``(d, ids)`` as numpy arrays."""
+    (packed, pn, pi), (jp, ja) = t, j
+    B, E = sel.shape
     td, ti = packed_score(packed, pn, pi, torch.from_numpy(sel), torch.from_numpy(q), topt=topt)
     jd, ji = j_packed_score(jp, ja, jnp.asarray(sel), jnp.asarray(q), topt=topt, interpret=True)
     jd, ji = np.asarray(jd), np.asarray(ji)
@@ -106,6 +102,73 @@ def test_packed_score_matches_jax_kernel(dtype, topt, E):
         past = ~fin.reshape(B, E, topt)
         lane0 = pi.numpy()[sel][:, :, :1].repeat(topt, 2)
         np.testing.assert_array_equal(ti.numpy().reshape(B, E, topt)[past], lane0[past])
+    return td.numpy(), ti.numpy()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("topt", [0, 8])
+@pytest.mark.parametrize("E", [1, 2, 4])
+def test_packed_score_matches_jax_kernel(dtype, topt, E):
+    """Same packed arrays, selections and queries through K4's plain version
+    and the Pallas kernel in interpret mode (``_hold_to_jax_kernel``)."""
+    rng, n, t, j = _toy_packed(dtype, seed=E + topt)
+    B = 8
+    sel = rng.integers(0, n + 1, (B, E)).astype(np.int32)
+    sel[::3, -1] = n  # sentinel selections
+    sel[1, 0] = 0  # a row of three neighbours
+    q = np.pad(rng.standard_normal((B, D)).astype(np.float32), ((0, 0), (0, 128 - D)))
+    _hold_to_jax_kernel(t, j, sel, q, topt)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("topt", [0, 8])
+def test_packed_score_negative_distances_match_jax_kernel(dtype, topt):
+    """Queries that are scaled copies of a selected node's neighbours, so
+    that 2 q.x > |x|^2: the partial distances of those blocks go negative
+    (no |q|^2, no clamp), and the order must still be the (d, lane) order."""
+    rng, n, t, j = _toy_packed(dtype, seed=20 + topt)
+    B, E = 8, 2
+    sel = rng.integers(0, n, (B, E)).astype(np.int32)
+    sel[3, 1] = n
+    rows = t[0][sel[:, 0], rng.integers(0, 3, B)].float().numpy()  # a neighbour of each first node
+    q = 3.0 * rows
+    d, _ = _hold_to_jax_kernel(t, j, sel, q, topt)
+    assert (d < 0).sum() >= B
+
+
+@pytest.mark.parametrize("topt", [1, 16, 128])
+def test_packed_score_topt_widths_match_jax_kernel(topt):
+    """One pass, 16 passes, and as many passes as R_tile (every slot of the
+    node, the +inf ones by the lane-0 rule)."""
+    rng, n, t, j = _toy_packed("bf16", seed=30 + topt)
+    B, E = 8, 2
+    sel = rng.integers(0, n + 1, (B, E)).astype(np.int32)
+    sel[::3, -1] = n
+    sel[1, 0] = 0
+    q = np.pad(rng.standard_normal((B, D)).astype(np.float32), ((0, 0), (0, 128 - D)))
+    _hold_to_jax_kernel(t, j, sel, q, topt)
+
+
+@pytest.mark.parametrize("topt", [0, 8, 128])
+def test_packed_score_all_tie_block_matches_jax_kernel(topt):
+    """Every row is a copy of one integer-valued vector, so every finite
+    slot of a node has the same distance, exactly: the ids come out in lane
+    order, in both versions."""
+    v = np.zeros((1, 128), np.float32)
+    v[0, :D] = np.arange(D) % 5 - 2
+    vecs = np.concatenate([np.repeat(v, 300, axis=0), np.zeros((1, 128), np.float32)])
+    rng, n, t, j = _toy_packed("bf16", seed=40 + topt, vecs=vecs)
+    B, E = 8, 2
+    sel = rng.integers(0, n, (B, E)).astype(np.int32)
+    sel[1, 0] = 0  # a row of three neighbours
+    q = np.pad(rng.integers(-3, 4, (B, D)).astype(np.float32), ((0, 0), (0, 128 - D)))
+    d, ids = _hold_to_jax_kernel(t, j, sel, q, topt)
+    w = topt or 128
+    d, ids = d.reshape(B, E, w), ids.reshape(B, E, w)
+    fin = np.isfinite(d)
+    assert (np.where(fin, d, d[:, :, :1]) == d[:, :, :1]).all()
+    lanes = t[2].numpy()[sel][:, :, :w]
+    np.testing.assert_array_equal(ids[fin], lanes[fin])
 
 
 def _agreement(t_ids, j_ids, sentinel):

@@ -290,6 +290,44 @@ def test_fused_search_s8_identical_to_plain(dev, expand, R, d, EF, ef):
     assert bool((real == torch.round(real)).all())
 
 
+def _assert_packed_matches_plain(packed, pn, pi, sel, q, topt, exact=False):
+    """One K4 launch against its plain version on the same CUDA tensors:
+    the same +inf pattern, distances within rtol 1e-5 / atol 1e-3 (equal
+    with ``exact``), ids equal at topt=0 or with ``exact``, else differing
+    only on ties (and in under 1% of the slots); every pass past a node's
+    finite slots gives the node's lane-0 id.  Returns the kernel's output."""
+    B, E = sel.shape
+    before = _kernels.launches["packed_score"]
+    d, ids = packed_score(packed, pn, pi, sel, q, topt=topt)
+    assert _kernels.launches["packed_score"] == before + 1
+    pd, pids = packed_score_plain(packed, pn, pi, sel, q, topt=topt)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(pd)
+    assert torch.equal(torch.isfinite(d), fin)
+    if exact:
+        assert torch.equal(d[fin], pd[fin]), float((d[fin] - pd[fin]).abs().max())
+        assert torch.equal(ids, pids), int((ids != pids).sum())
+    else:
+        torch.testing.assert_close(d[fin], pd[fin], rtol=1e-5, atol=1e-3)
+    if topt == 0:
+        assert torch.equal(ids, pids)
+        return d, ids
+    # an id may differ from the plain one only on a tie: each kernel id's
+    # distance, looked up in the node's full row, is the distance it reports
+    full_d, full_i = packed_score_plain(packed, pn, pi, sel, q, topt=0)
+    full_d, full_i = full_d.view(B, E, -1), full_i.view(B, E, -1)
+    kd, ki = d.view(B, E, topt), ids.view(B, E, topt)
+    hit = (full_i[:, :, None, :] == ki[:, :, :, None]) & torch.isfinite(kd)[:, :, :, None]
+    looked_up = torch.where(hit, full_d[:, :, None, :], 0.0).sum(-1)
+    ok = torch.isfinite(kd)
+    torch.testing.assert_close(looked_up[ok], kd[ok], rtol=1e-5, atol=1e-3)
+    assert float((ids != pids).float().mean()) < 0.01
+    # passes past the finite slots give the node's lane-0 id
+    lane0 = pi[sel.long()][:, :, :1].expand(B, E, topt)
+    assert torch.equal(ki[~ok], lane0[~ok])
+    return d, ids
+
+
 @pytest.mark.parametrize("topt", [0, 8])
 @pytest.mark.parametrize("R", [40, 128])
 @pytest.mark.parametrize("B", [1, 37, 256])
@@ -305,30 +343,118 @@ def test_packed_score_matches_plain(dev, B, R, topt):
     sel[::3, -1] = n
     sel[0, 0] = 0  # a row of three neighbours
     q = torch.from_numpy(rng.standard_normal((B, 128)).astype(np.float32)).to(dev)
-    before = _kernels.launches["packed_score"]
-    d, ids = packed_score(packed, pn, pi, sel, q, topt=topt)
-    assert _kernels.launches["packed_score"] == before + 1
-    pd, pids = packed_score_plain(packed, pn, pi, sel, q, topt=topt)
-    torch.cuda.synchronize()
-    fin = torch.isfinite(pd)
-    assert torch.equal(torch.isfinite(d), fin)
-    torch.testing.assert_close(d[fin], pd[fin], rtol=1e-5, atol=1e-3)
-    if topt == 0:
-        assert torch.equal(ids, pids)
-        return
-    # an id may differ from the plain one only on a tie: each kernel id's
-    # distance, looked up in the node's full row, is the distance it reports
-    full_d, full_i = packed_score_plain(packed, pn, pi, sel, q, topt=0)
-    full_d, full_i = full_d.view(B, E, -1), full_i.view(B, E, -1)
-    kd, ki = d.view(B, E, topt), ids.view(B, E, topt)
-    hit = (full_i[:, :, None, :] == ki[:, :, :, None]) & torch.isfinite(kd)[:, :, :, None]
-    looked_up = torch.where(hit, full_d[:, :, None, :], 0.0).sum(-1)
-    ok = torch.isfinite(kd)
-    torch.testing.assert_close(looked_up[ok], kd[ok], rtol=1e-5, atol=1e-3)
-    assert float((ids != pids).float().mean()) < 0.01
-    # passes past the finite slots give the node's lane-0 id
+    _assert_packed_matches_plain(packed, pn, pi, sel, q, topt)
+
+
+def _packed_case(dev, n, R, D, B, E, seed, vecs=None):
+    """A random layout of n nodes of R neighbours at width D (short rows and
+    rows of three neighbours included), B x E selections (sentinels
+    included) and N(0, 1) queries; ``vecs`` (n + 1, D) replaces the rows."""
+    rng = np.random.default_rng(seed)
+    if vecs is None:
+        vecs, norms, adj, rng = _random_graph(dev, n, R, D, seed)
+    else:
+        norms = (vecs * vecs).sum(1)
+        norms[n] = float("inf")
+        adj = np.stack([rng.choice(n, size=R, replace=False) for _ in range(n)] + [np.full(R, n)])
+        adj = torch.from_numpy(adj.astype(np.int32)).to(dev)
+    adj[::7, R - 9 :] = n
+    adj[::11, 3:] = n
+    packed, pn, pi = build_packed(vecs, norms, adj)
+    sel = torch.from_numpy(rng.integers(0, n + 1, (B, E)).astype(np.int32)).to(dev)
+    sel[::3, -1] = n
+    sel[0, 0] = 0  # a row of three neighbours
+    q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
+    return packed, pn, pi, sel, q
+
+
+@pytest.mark.parametrize("D", [8, 64, 128, 512])
+@pytest.mark.parametrize("E", [1, 2, 4])
+@pytest.mark.parametrize("topt", [1, 8, 16, 128])
+def test_packed_score_over_topt_e_and_width(dev, topt, E, D):
+    """K4 at every selection width up to R_tile, E 1-4, and D from one
+    16-byte column to four 32 KB chunks a block (D = 512: two slots)."""
+    case = _packed_case(dev, 1000, 120, D, 33, E, seed=topt + 10 * E + D)
+    _assert_packed_matches_plain(*case, topt)
+
+
+@pytest.mark.parametrize(
+    "n,R,D,topt", [(600, 250, 512, 0), (600, 250, 512, 8), (600, 250, 512, 256), (200, 32, 4096, 0), (200, 32, 4096, 8)]
+)
+def test_packed_score_block_above_one_slot(dev, n, R, D, topt):
+    """Blocks larger than one 32 KB staging slot: RS = 256 rows of D = 512
+    (256 KB, R_tile 256: two keys a thread) in eight 32-row chunks through
+    two slots; RS = 32 rows of D = 4096 (256 KB) in two 16-row chunks
+    through one slot, as two 128 KB slots would not fit."""
+    packed, pn, pi, sel, q = _packed_case(dev, n, R, D, 17, 2, seed=topt + D)
+    assert packed.shape[1] * D * 2 > 32768
+    _assert_packed_matches_plain(packed, pn, pi, sel, q, topt)
+
+
+def _integer_rows(dev, n, D, seed, levels=9):
+    """n integer-valued rows in [-(levels // 2), levels // 2] and a zero
+    sentinel row: bf16 holds them exactly and every dot is an exact f32 sum,
+    in any order."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-(levels // 2), levels // 2 + 1, (n, D)).astype(np.float32)
+    return torch.from_numpy(np.concatenate([x, np.zeros((1, D), np.float32)])).to(dev)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("topt", [0, 8, 128])
+def test_packed_score_negative_distances(dev, topt, D):
+    """Queries that are scaled copies of one of their node's rows, so that
+    2 q.x > |x|^2: the partial distances go negative (no |q|^2, no clamp).
+    Integer rows make every distance exact, ties included, so the ids must
+    equal the plain version's: the key's sign-aware order is the float
+    order."""
+    n, B, E = 1000, 64, 2
+    vecs = _integer_rows(dev, n, D, seed=topt + D)
+    packed, pn, pi, sel, _ = _packed_case(dev, n, 120, D, B, E, seed=topt + D, vecs=vecs)
+    sel[:, 0] = torch.arange(1, B + 1, device=dev, dtype=torch.int32)  # real nodes, short rows among them
+    q = 3.0 * packed[sel[:, 0].long(), 1].float()
+    d, _ = _assert_packed_matches_plain(packed, pn, pi, sel, q, topt, exact=True)
+    assert int((d < 0).sum()) >= B
+
+
+@pytest.mark.parametrize("topt", [0, 1, 8, 128])
+def test_packed_score_all_tie_blocks(dev, topt):
+    """Every row a copy of one vector: every finite slot of a node ties, so
+    the ids come out in lane order, identical to the plain version's."""
+    n, D, B, E = 500, 128, 40, 2
+    vecs = _integer_rows(dev, 1, D, seed=5)[:1].expand(n + 1, D).clone()
+    vecs[n] = 0
+    packed, pn, pi, sel, _ = _packed_case(dev, n, 120, D, B, E, seed=topt, vecs=vecs)
+    q = _integer_rows(dev, B, D, seed=6, levels=5)[:B]
+    d, ids = _assert_packed_matches_plain(packed, pn, pi, sel, q, topt, exact=True)
+    w = topt or pn.shape[1]
+    d3, i3 = d.view(B, E, w), ids.view(B, E, w)
+    fin = torch.isfinite(d3)
+    lanes = pi[sel.long()][:, :, :w]
+    assert torch.equal(i3[fin], lanes[fin])
+
+
+@pytest.mark.parametrize("topt", [8, 16, 128])
+def test_packed_score_exhausted_passes(dev, topt):
+    """All-sentinel selections, and nodes with fewer finite slots than topt
+    (three neighbours, or nine sentinel tails): every pass past the finite
+    slots gives (+inf, ids[node, 0])."""
+    n, B, E = 1000, 32, 4
+    packed, pn, pi, sel, q = _packed_case(dev, n, 120, 128, B, E, seed=topt)
+    sel[: B // 2] = n  # queries whose every selection is the sentinel
+    sel[B // 2 :, :2] = torch.arange(0, 11 * (B // 2), 11, device=dev, dtype=torch.int32)[:, None]  # three neighbours
+    d, ids = _assert_packed_matches_plain(packed, pn, pi, sel, q, topt)
+    d3, i3 = d.view(B, E, topt), ids.view(B, E, topt)
+    assert not torch.isfinite(d3[: B // 2]).any()
+    assert int(torch.isfinite(d3[B // 2 :, :2]).sum(-1).max()) == 3
     lane0 = pi[sel.long()][:, :, :1].expand(B, E, topt)
-    assert torch.equal(ki[~ok], lane0[~ok])
+    assert torch.equal(i3[~torch.isfinite(d3)], lane0[~torch.isfinite(d3)])
+
+
+def test_packed_score_large_batch(dev):
+    """B = 16384 pairs of two (the large-B shape of the timing), topt 8."""
+    case = _packed_case(dev, 4000, 120, 128, 16384, 2, seed=16384)
+    _assert_packed_matches_plain(*case, 8)
 
 
 @pytest.mark.parametrize("use_packed", [True, False])

@@ -25,7 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from expann_tpu_torch.ops.fused import fused_search
 from expann_tpu_torch.tools import (
-    perf_flat_mode, perf_pallas_gather, perf_trace, probe_fused, probe_lanes, probe_step_overhead,
+    perf_flat_mode, perf_packed_score, perf_pallas_gather, perf_trace, probe_fused, probe_lanes, probe_step_overhead,
 )
 from expann_tpu_torch.utils import profiling
 
@@ -240,6 +240,23 @@ def test_perf_flat_mode_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="GPU"):
         perf_flat_mode.main([])
+
+
+def test_perf_packed_score_refuses_without_a_card(monkeypatch):
+    """The block scorer's timing tool measures the card or nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="GPU"):
+        perf_packed_score.main([])
+
+
+def test_perf_packed_score_bound():
+    """The bound of a call: one 32 KB block, two aux rows, one selection
+    entry and the selected (d, id) pairs a pair, the f32 queries, over HBM's
+    3.35 TB/s (the bf16 operations take far less)."""
+    nbytes = 64 * (128 * 128 * 2 + 128 * 8 + 4 + 8 * 8) + 32 * 128 * 4
+    assert perf_packed_score.bound_ms(32, 128, 128, 8) == (nbytes / 3.35e12 * 1e3, "bytes")
+    full = 64 * (128 * 128 * 2 + 128 * 8 + 4 + 128 * 8) + 32 * 128 * 4
+    assert perf_packed_score.bound_ms(32, 128, 128, 0) == (full / 3.35e12 * 1e3, "bytes")
 
 
 def test_parse_copies_sums_copies_and_the_region(tmp_path):
