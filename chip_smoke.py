@@ -87,7 +87,23 @@ Phases, one line each:
                    copies, the device's idle share (negative fails: the
                    records would overrun the span), the top kernels by device
                    time; and the host's own steps of a flat chunk (bf16 cast,
-                   i8 quantization).
+                   i8 quantization);
+ 19. bench         expann_tpu_torch.bench.canonical.run at the canonical size,
+                   in this process (the counterpart of bench.py): its JSON line,
+                   bench.py's keys, all 11 points, recall@10 at PERF.md's limits
+                   (flat 0.99, fused_i8 0.97, the graph at ef=120 0.95 on bf16
+                   and s8 blocks and on the i8 wire), ``value`` from the points,
+                   and K1, K1-s8, K2, K2-s8 launched;
+ 20. cli           python -m expann_tpu_torch.cli --config config_synthetic.json
+                   in a scratch directory: the 24-job sweep, 24 records with
+                   each job's recall and QPS, K1 on the 12 uncompressed jobs and
+                   K1-s8 on the 12 compressed ones (two 400-query calls a job),
+                   every job's recall within 0.01 of the JAX package's tracked
+                   record of it (read only); fresh engines over a sweep index
+                   file, bf16 and s8 blocks, answering as the reused jobs did,
+                   and K1 and K1-s8 against their plain versions there at the
+                   grid's own arguments (query_expand=1, no entry seeds, ef 10
+                   and 60).
 Then the script's run time, the kernel summary as JSON, the card's name
 and power limit as nvidia-smi prints them, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -112,12 +128,6 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 N, M_QUERIES, D, K = 56000, 400, 128, 10  # config_synthetic.json
-# bench.py's graph config (bench.py:256-279)
-GRAPH_CFG = dict(
-    M=60, ef_construction=500, ortho_count=1, prune_overflow=1, prune_cand=500,
-    query_expand=2, fused_cand=8, query_block=16384, entry_seeds=8, precision="default",
-    packed_topt=8, fused_qt=128,
-)
 EFS = (40, 100, 120)
 QPS_QUERIES = 65536
 FLAT_B = 4096  # phase 3 batch
@@ -136,6 +146,18 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}  # f32: outside the t
 QUANT_EFS = (100, 110, 120)  # bench.py:306 (s8 blocks)
 WIRE_EFS = (110, 120)  # bench.py:329 (i8 query wire)
 FLAT_S8_KS = (30, 100)  # 30: fused_i8's scan at k=10 (rerank_mult=3)
+
+
+def graph_cfg():
+    """bench.py's graph config as the canonical bench builds it
+    (bench/canonical.graph_config), with both routes left to "auto": on the
+    card 400-query calls take the fused route and small batches the
+    per-iteration route."""
+    import dataclasses
+
+    from expann_tpu_torch.bench.canonical import graph_config
+
+    return dataclasses.replace(graph_config(), use_packed="auto", use_fused="auto")
 
 
 def phase(name: str, **vals) -> None:
@@ -299,6 +321,45 @@ def hold_packed(torch, label: str, args, sel, q, t: int, exact: bool = False, mi
     return err
 
 
+def hold_fused(torch, label: str, g, q, ef: int, expand: int, cand: int, seeds: int, gt: np.ndarray) -> float:
+    """K1 (bf16 blocks of ``g``) or K1-s8 (s8 blocks) against its plain
+    version on the arguments the engine gives it for the f32 queries ``q``
+    at ``ef``: EF=128, the same seeded beams, 8 ef + 16 iterations.  The
+    top-10 after the f32 rerank overlaps >= 0.99, recall within 0.005,
+    distance computations within 1%, and the beam distances where both
+    hold the same id within D_ATOL / D_RTOL on bf16 blocks, identical on
+    s8 (exact integer sums).  Returns the largest of those differences."""
+    from expann_tpu_torch.models.search import entry_beam, kernel_query, rerank
+    from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain, topt_for
+
+    name = "fused_search_s8" if g.packed_codes is not None else "fused_search"
+    topt = topt_for(cand, expand, g.packed.shape[1])
+    bd0, bi0, _ = entry_beam(g, q, 128, seeds)
+    fargs = (g.packed, g.packed_norms, g.packed_ids, kernel_query(g, q), bd0, bi0, ef, expand, topt, 8 * ef + 16)
+    ki, kd, kn, _ = fused_search_cuda(*fargs)
+    pi_, pd_, pn, _ = fused_search_plain(*fargs)
+    torch.cuda.synchronize()
+    same = (ki == pi_) & (ki < g.sentinel)
+    err = float((kd - pd_).abs()[same].max())
+    k_top = rerank(g, q, ki, K)[0].cpu().numpy()
+    p_top = rerank(g, q, pi_, K)[0].cpu().numpy()
+    overlap = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / K for a, b in zip(k_top, p_top)]))
+    r_diff = recall(k_top, gt) - recall(p_top, gt)
+    nk, npl = int(kn.sum()), int(pn.sum())
+    phase(label, kernel=name, ef=ef, expand=expand, topt=topt, seeds=seeds, B=q.shape[0],
+          top10_overlap=f"{overlap:.4f}", recall_diff=f"{r_diff:+.4f}", distcomps_kernel=nk, distcomps_plain=npl,
+          beams_identical=f"{int((ki == pi_).all(1).sum())}/{q.shape[0]}", max_abs_err=f"{err:.3e}")
+    check(overlap >= 0.99, f"{label}: {name}: top-10 overlap with the plain version {overlap} < 0.99")
+    check(abs(r_diff) <= 0.005, f"{label}: {name}: recall differs from the plain version by {r_diff}")
+    check(abs(nk - npl) <= 0.01 * npl, f"{label}: {name}: distcomps {nk} vs plain {npl}")
+    if g.packed_codes is not None:
+        check(bool(torch.equal(kd[same], pd_[same])), f"{label}: {name}: beam distances differ by {err}")
+    else:
+        check(bool(torch.allclose(kd[same], pd_[same], rtol=D_RTOL, atol=D_ATOL)),
+              f"{label}: {name}: beam distances differ by {err}")
+    return err
+
+
 def hold_flat_s8(torch, label: str, fn, q, x, k: int) -> float:
     """An s8 flat top-k kernel ``fn`` against flat_topk_plain on the codes
     (q, x) at k: both sides compute exact integer distances and break ties
@@ -332,14 +393,14 @@ def flat_s8_phase(torch, dev) -> dict:
     return err
 
 
-def quantized_phases(torch, dev, ds, graph, card: str, topt: int) -> dict:
+def quantized_phases(torch, dev, ds, graph, cfg, card: str, topt: int) -> dict:
     """Phases 9-12, quantized serving: the fused_i8 flat engine, bench.py's
     flow on the graph engine ``graph`` built in phase 4, K1-s8 against its
     plain version, the compressed small-batch route, and the quantized
     times.  Returns the launch counts of its two paths, K1-s8's largest
     beam-distance error and the s8 kernels' times."""
     from expann_tpu_torch import BruteForceEngine
-    from expann_tpu_torch.models.search import entry_beam, kernel_query, rerank
+    from expann_tpu_torch.models.search import entry_beam, kernel_query
     from expann_tpu_torch.ops import _kernels
     from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain
     from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_fixed_cuda, flat_topk_plain, quantize_query_i8
@@ -397,25 +458,8 @@ def quantized_phases(torch, dev, ds, graph, card: str, topt: int) -> dict:
     qg = torch.from_numpy(ds.queries).to(torch.bfloat16).to(dev).float()
     EF, ef = 128, 120
     args = (g.packed, g.packed_norms, g.packed_ids)
-    bd0, bi0, _ = entry_beam(g, qg, EF, GRAPH_CFG["entry_seeds"])
-    fargs = (kernel_query(g, qg), bd0, bi0, ef, GRAPH_CFG["query_expand"], topt, 8 * ef + 16)
-    ki, kd, kn, _ = fused_search_cuda(*args, *fargs)
-    pi_, pd_, pn, _ = fused_search_plain(*args, *fargs)
-    torch.cuda.synchronize()
-    same = (ki == pi_) & (ki < N)
-    fused_s8_err = float((kd - pd_).abs()[same].max())
-    k_top = rerank(g, qg, ki, K)[0].cpu().numpy()
-    p_top = rerank(g, qg, pi_, K)[0].cpu().numpy()
-    overlap = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / K for a, b in zip(k_top, p_top)]))
-    r_diff = recall(k_top, ds.ground_truth) - recall(p_top, ds.ground_truth)
-    nk, npl = int(kn.sum()), int(pn.sum())
-    phase("fused_s8", ef=ef, top10_overlap=f"{overlap:.4f}", recall_diff=f"{r_diff:+.4f}", distcomps_kernel=nk,
-          distcomps_plain=npl, beams_identical=f"{int((ki == pi_).all(1).sum())}/{M_QUERIES}",
-          max_abs_err=f"{fused_s8_err:.3e}")
-    check(overlap >= 0.99, f"fused_search_s8: top-10 overlap with the plain version {overlap} < 0.99")
-    check(abs(r_diff) <= 0.005, f"fused_search_s8: recall differs from the plain version by {r_diff}")
-    check(abs(nk - npl) <= 0.01 * npl, f"fused_search_s8: distcomps {nk} vs plain {npl}")
-    check(bool(torch.equal(kd[same], pd_[same])), f"fused_search_s8: beam distances differ by {fused_s8_err}")
+    fused_s8_err = hold_fused(torch, "fused_s8", g, qg, ef, cfg.query_expand, cfg.fused_cand, cfg.entry_seeds,
+                              ds.ground_truth)
 
     # ---- 11. the compressed engine's per-iteration route -----------------
     graph.set_ef_search(120)
@@ -487,10 +531,10 @@ def quantized_phases(torch, dev, ds, graph, card: str, topt: int) -> dict:
               achieved_tops=f"{2.0 * FLAT_CHUNK * N * D / (ms * 1e-3) / 1e12:.1f}", card=card)
     del x8, q8, xn8, qn8
 
-    Bq = GRAPH_CFG["query_block"]
+    Bq = cfg.query_block
     qt = torch.from_numpy(rng.standard_normal((Bq, D)).astype(np.float32)).to(torch.bfloat16).to(dev).float()
-    bd0, bi0, _ = entry_beam(g, qt, EF, GRAPH_CFG["entry_seeds"])
-    targs = (*args, kernel_query(g, qt), bd0, bi0, ef, GRAPH_CFG["query_expand"], topt, 8 * ef + 16)
+    bd0, bi0, _ = entry_beam(g, qt, EF, cfg.entry_seeds)
+    targs = (*args, kernel_query(g, qt), bd0, bi0, ef, cfg.query_expand, topt, 8 * ef + 16)
     ms = event_ms(lambda: fused_search_cuda(*targs), reps=5)
     plain_ms = event_ms(lambda: fused_search_plain(*targs), reps=1)
     # bytes the traversal must read: per expansion one RS x D s8 block plus RS
@@ -746,6 +790,155 @@ def trace_phase(torch, flat_i8, card: str) -> None:
           B=FLAT_CHUNK)
 
 
+def bench_py_keys() -> tuple:
+    """The keys of bench.py's ``out`` dict and of its pareto entries, read
+    from its source (bench.py imports JAX; it is not run)."""
+    import ast
+
+    with open(os.path.join(ROOT, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    out = next(n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
+               and any(isinstance(t, ast.Name) and t.id == "out" for t in n.targets))
+    keys = [k.value for k in out.keys]
+    return keys, [k.value for k in out.values[keys.index("pareto")].elt.keys]
+
+
+def bench_phase(work: str, card: str) -> dict:
+    """Phase 19: ``bench.canonical.run`` at the canonical size in this
+    process, the launch counts reset just before it: bench.py's keys, all
+    11 points, PERF.md's recall limits, ``value`` from the points, and K1,
+    K1-s8, K2, K2-s8 launched.  Returns the path's launch counts."""
+    from expann_tpu_torch.bench import canonical
+    from expann_tpu_torch.ops import _kernels
+
+    _kernels.launches.clear()
+    t0 = time.perf_counter()
+    out = canonical.run(N, M_QUERIES, D, K, qps_queries=QPS_QUERIES, reps=5, cache_dir=os.path.join(work, "data"))
+    secs = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    print("[bench] " + json.dumps(out), flush=True)
+    phase("bench", seconds=f"{secs:.1f}", card=card)
+    phase("launches", path="bench", **launches)
+    keys, pareto_keys = bench_py_keys()
+    check(list(out) == keys, f"bench keys {list(out)} are not bench.py's {keys}")
+    check(all(list(p) == pareto_keys for p in out["pareto"]), "a pareto entry's keys are not bench.py's")
+    rec = {p["engine"]: p["recall"] for p in out["pareto"]}
+    names = ["gpu_flat", "gpu_flat_i8"] + [f"antitopo_ef{ef}" for ef in (40, 60, 100, 120)] + [
+        f"antitopo_compressed_ef{ef}" for ef in QUANT_EFS] + [f"antitopo_wire_i8_ef{ef}" for ef in WIRE_EFS]
+    check(list(rec) == names, f"bench points {list(rec)}, expected {names}")
+    limits = dict(gpu_flat=0.99, gpu_flat_i8=0.97, antitopo_ef120=0.95, antitopo_compressed_ef120=0.95,
+                  antitopo_wire_i8_ef120=0.95)
+    low = {name: rec[name] for name, lim in limits.items() if rec[name] < lim}
+    check(not low, f"bench recall@10 below PERF.md's limits {limits}: {low}")
+    ok = [p for p in out["pareto"] if p["recall"] >= canonical.RECALL_TARGET]
+    best = max(ok, key=lambda p: p["qps"]) if ok else max(out["pareto"], key=lambda p: p["recall"])
+    check(out["value"] == best["qps"] and out["best_engine"] == best["engine"],
+          f"bench value {out['value']} ({out['best_engine']}) is not the best qualifying point {best}")
+    check(all(out[key] and out[key] > 0 for key in ("flat_device_qps", "graph_device_qps", "graph_device_qps_i8")),
+          "a device QPS of the bench is missing")
+    check((out["vs_baseline"] is None) == (canonical.load_cpu_baseline() is None),
+          f"vs_baseline {out['vs_baseline']} does not follow bench/cpu_baseline.json")
+    missing = [name for name in ("fused_search", "fused_search_s8", "flat_topk", "flat_topk_s8")
+               if not launches.get(name)]
+    check(not missing, f"the bench launched no {missing}: {launches}")
+    return launches
+
+
+def cli_phase(dev, ds, work: str, card: str) -> tuple:
+    """Phase 20: ``cli.main(["--config", config_synthetic.json])`` in the
+    work directory (never the repo's tracked data/), the launch counts reset
+    just before it: 24 records and no failed job; every job's two
+    400-query calls (warm-up, timed) one launch each of K1 (uncompressed
+    jobs, bf16 blocks) or K1-s8 (compressed jobs); every job's recall within
+    0.01 of the JAX package's record of the same job (the tracked
+    data/<ds_name>/data/latest.json, read only); and, on fresh engines over
+    the prune_overflow=1 index file, uncompressed and compressed, the
+    recall of the reused jobs at ef_search_mult=6, and K1 and K1-s8 held to
+    their plain versions at the jobs' own arguments (query_expand=1, no
+    entry seeds) at ef_search_mult 1 and 6.  Returns the path's launch
+    counts and the holds' largest errors by kernel."""
+    import contextlib
+
+    import torch
+
+    from expann_tpu_torch import AntitopoEngine, cli
+    from expann_tpu_torch.bench.harness import score
+    from expann_tpu_torch.bench.runner import canonical_job_grid
+    from expann_tpu_torch.ops import _kernels
+
+    config = os.path.join(ROOT, "config_synthetic.json")
+    with open(config) as f:
+        ds_name = json.load(f)["ds_name"]
+    with open(os.path.join(ROOT, "data", ds_name, "data", "latest.json")) as f:
+        jax_recs = json.load(f)
+    log = os.path.join(work, "cli.log")
+    cwd = os.getcwd()
+    _kernels.launches.clear()
+    t0 = time.perf_counter()
+    os.chdir(work)
+    try:
+        with open(log, "w") as f, contextlib.redirect_stdout(f):
+            rc = cli.main(["--config", config])
+    finally:
+        os.chdir(cwd)
+    secs = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    with open(log) as f:
+        log_text = f.read()
+    with open(os.path.join(work, "data", ds_name, "data", "latest.json")) as f:
+        recs = json.load(f)
+
+    def job_key(r):
+        p = r["param_list"]
+        return int(p["ef_search_mult"]), p["use_compression"] == "1", int(p["prune_overflow"])
+
+    jax_recall = {job_key(r): r["recall"] for r in jax_recs}
+    for i, r in enumerate(recs):
+        mult, compressed, po = job_key(r)
+        phase("cli", job=i + 1, ef_search_mult=mult, use_compression=int(compressed), prune_overflow=po,
+              recall_at_10=f"{r['recall']:.4f}", jax_record_recall_at_10=jax_recall.get(job_key(r), "null"),
+              qps=f"{1e9 / r['time_per_query_ns']:.0f}", build_s=f"{r['time_to_build_ns'] / 1e9:.3f}", card=card)
+    diff = {job_key(r): abs(r["recall"] - jax_recall[job_key(r)]) for r in recs if job_key(r) in jax_recall}
+    phase("cli", seconds=f"{secs:.1f}", records=len(recs), recall_min=f"{min(r['recall'] for r in recs):.4f}",
+          recall_max=f"{max(r['recall'] for r in recs):.4f}",
+          max_recall_diff_to_jax_records=f"{max(diff.values(), default=float('nan')):.4f}")
+    phase("launches", path="cli", **launches)
+    check(rc == 0 and len(recs) == 24 and "Got bench error" not in log_text,
+          f"the CLI returned {rc} with {len(recs)} records:\n{log_text[-3000:]}")
+    per_job = 2  # one warm-up and one timed call of the 400 queries, one chunk each
+    check(launches.get("fused_search") == 12 * per_job and launches.get("fused_search_s8") == 12 * per_job,
+          f"the 12 uncompressed jobs did not each serve bf16 blocks (K1) and the 12 compressed s8 (K1-s8): {launches}")
+    check(len(diff) == 24 and max(diff.values()) <= 0.01,
+          f"recall differs from the JAX package's records of the same jobs by more than 0.01: "
+          f"{ {k: v for k, v in diff.items() if v > 0.01} } ({len(diff)} of 24 jobs matched)")
+
+    recall_of = {job_key(r): r["recall"] for r in recs}
+    qg = torch.from_numpy(ds.queries).to(torch.bfloat16).to(dev).float()  # the engine's fused-route query
+    errs = {}
+    for compressed in (False, True):
+        conf = next(c for c in canonical_job_grid(os.path.join(work, "index"))
+                    if (c.ef_search_mult, c.use_compression, c.prune_overflow) == (6, compressed, 1))
+        fresh = AntitopoEngine(config=conf, device=dev)
+        fresh.build()  # reads the index file the sweep wrote
+        fresh_recall = score(fresh, ds, fresh.query_k_batch(ds.queries, K), 0.0, 0.0).recall
+        g = fresh.graph
+        phase("cli", job=f"ef_search_mult=6 use_compression={int(compressed)} prune_overflow=1",
+              packed_dtype=str(g.packed.dtype).split(".")[-1], recall_at_10=f"{recall_of[6, compressed, 1]:.4f}",
+              fresh_engine_recall_at_10=f"{fresh_recall:.4f}")
+        check(g.packed.dtype == (torch.int8 if compressed else torch.bfloat16),
+              f"a fresh engine with use_compression={compressed} serves {g.packed.dtype} blocks")
+        check(fresh_recall == recall_of[6, compressed, 1],
+              f"a fresh engine over the sweep's index (use_compression={compressed}) gives recall {fresh_recall}, "
+              f"the reused job {recall_of[6, compressed, 1]}")
+        for mult in (1, 6):
+            err = hold_fused(torch, "cli", g, qg, K * mult, conf.query_expand, conf.fused_cand, conf.entry_seeds,
+                             ds.ground_truth)
+            name = "fused_search_s8" if compressed else "fused_search"
+            errs[name] = max(errs.get(name, 0.0), err)
+        del fresh, g
+    return launches, errs
+
+
 def main() -> None:
     import torch
 
@@ -753,9 +946,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
-    from expann_tpu_torch import AntitopoConfig, AntitopoEngine, BruteForceEngine
+    from expann_tpu_torch import AntitopoEngine, BruteForceEngine
     from expann_tpu_torch.data.loader import load_synthetic_uniform_sphere_points
-    from expann_tpu_torch.models.search import entry_beam, rerank
+    from expann_tpu_torch.models.search import entry_beam
     from expann_tpu_torch.ops import _kernels
     from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain, topt_for
     from expann_tpu_torch.ops.packed import build_packed, packed_score_cuda, packed_score_plain
@@ -763,6 +956,7 @@ def main() -> None:
     from expann_tpu_torch.utils.profiling import card_name, event_ms
 
     dev = torch.device("cuda")
+    cfg = graph_cfg()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = card_name()
@@ -776,15 +970,15 @@ def main() -> None:
     ptx = ptxas_summary(_kernels.build_report())
     check(set(ptx) == set(KERNEL_NAMES), f"ptxas report lists {sorted(ptx)}")
     check(all(v["arch"] == "sm_90a" for v in ptx.values()), f"not built for sm_90a: {ptx}")
-    topt = topt_for(GRAPH_CFG["fused_cand"], GRAPH_CFG["query_expand"], 128)
+    topt = topt_for(cfg.fused_cand, cfg.query_expand, 128)
     smem = {
         "flat_topk_kernel": lib.expann_flat_topk_smem_bytes(D, K),
         "flat_topk_fixed_kernel": lib.expann_flat_topk_fixed_smem_bytes(D, K),
-        "fused_search_kernel": lib.expann_fused_search_smem_bytes(D, 128, 128, GRAPH_CFG["query_expand"], topt),
+        "fused_search_kernel": lib.expann_fused_search_smem_bytes(D, 128, 128, cfg.query_expand, topt),
         "packed_score_kernel": lib.expann_packed_score_smem_bytes(D, 128, 128),
         "flat_topk_s8_kernel": lib.expann_flat_topk_smem_bytes(D, 3 * K),
         "flat_topk_fixed_s8_kernel": lib.expann_flat_topk_fixed_smem_bytes(D, 3 * K),
-        "fused_search_s8_kernel": lib.expann_fused_search_smem_bytes(D, 128, 128, GRAPH_CFG["query_expand"], topt),
+        "fused_search_s8_kernel": lib.expann_fused_search_smem_bytes(D, 128, 128, cfg.query_expand, topt),
         "probe_fused_kernel": 0,
         "block_gather_kernel": lib.expann_block_gather_smem_bytes(128, D, 4),
         "step_overhead_kernel": lib.expann_step_overhead_smem_bytes(128),
@@ -811,8 +1005,10 @@ def main() -> None:
     flat_err.update(flat_s8_phase(torch, dev))
 
     # ---- 4. the canonical config: the batched main path --------------------
-    with tempfile.TemporaryDirectory() as cache:
-        ds = load_synthetic_uniform_sphere_points(N, M_QUERIES, K, D, cache_dir=cache, device=dev)
+    # the dataset cache and the bench's and the CLI's files; removed at exit
+    work_dir = tempfile.TemporaryDirectory()
+    work = work_dir.name
+    ds = load_synthetic_uniform_sphere_points(N, M_QUERIES, K, D, cache_dir=os.path.join(work, "data"), device=dev)
     # the oracle itself, against float64 numpy on a slice
     d64 = ((ds.queries[:50, None, :].astype(np.float64) - ds.vecs[None].astype(np.float64)) ** 2).sum(-1)
     check(recall(ds.ground_truth[:50], np.argsort(d64, 1)[:, :K]) >= 0.999, "exact oracle disagrees with float64")
@@ -826,7 +1022,7 @@ def main() -> None:
     flat_recall = recall(flat_ids, ds.ground_truth)
     phase("canonical", engine="flat", mode="fused", recall_at_10=f"{flat_recall:.4f}")
 
-    graph = AntitopoEngine(config=AntitopoConfig(**GRAPH_CFG), device=dev)
+    graph = AntitopoEngine(config=graph_cfg(), device=dev)
     graph.store_many_vectors(ds.vecs)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -868,27 +1064,10 @@ def main() -> None:
     # ---- 5. the traversal kernel against its plain version ----------------
     qg = torch.from_numpy(ds.queries).to(torch.bfloat16).to(dev).float()
     EF, ef = 128, 120
-    topt = topt_for(GRAPH_CFG["fused_cand"], GRAPH_CFG["query_expand"], g.packed.shape[1])
+    topt = topt_for(cfg.fused_cand, cfg.query_expand, g.packed.shape[1])
     args = (g.packed, g.packed_norms, g.packed_ids)
-    bd0, bi0, _ = entry_beam(g, qg, EF, GRAPH_CFG["entry_seeds"])
-    ki, kd, kn, _ = fused_search_cuda(*args, qg, bd0, bi0, ef, GRAPH_CFG["query_expand"], topt, 8 * ef + 16)
-    pi_, pd_, pn, _ = fused_search_plain(*args, qg, bd0, bi0, ef, GRAPH_CFG["query_expand"], topt, 8 * ef + 16)
-    torch.cuda.synchronize()
-    same = (ki == pi_) & (ki < N)
-    fused_err = float((kd - pd_).abs()[same].max())
-    k_top, _ = rerank(g, qg, ki, K)
-    p_top, _ = rerank(g, qg, pi_, K)
-    k_top, p_top = k_top.cpu().numpy(), p_top.cpu().numpy()
-    overlap = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / K for a, b in zip(k_top, p_top)]))
-    r_diff = recall(k_top, ds.ground_truth) - recall(p_top, ds.ground_truth)
-    nk, npl = int(kn.sum()), int(pn.sum())
-    phase("fused", ef=ef, top10_overlap=f"{overlap:.4f}", recall_diff=f"{r_diff:+.4f}",
-          distcomps_kernel=nk, distcomps_plain=npl, max_abs_err=f"{fused_err:.3e}")
-    check(overlap >= 0.99, f"fused_search: top-10 overlap with the plain version {overlap} < 0.99")
-    check(abs(r_diff) <= 0.005, f"fused_search: recall differs from the plain version by {r_diff}")
-    check(abs(nk - npl) <= 0.01 * npl, f"fused_search: distcomps {nk} vs plain {npl}")
-    check(bool(torch.allclose(kd[same], pd_[same], rtol=D_RTOL, atol=D_ATOL)),
-          f"fused_search: beam distances differ by {fused_err}")
+    fused_err = hold_fused(torch, "fused", g, qg, ef, cfg.query_expand, cfg.fused_cand, cfg.entry_seeds,
+                           ds.ground_truth)
 
     # ---- 6. the block scorer against its plain version ---------------------
     q400 = torch.from_numpy(ds.queries).to(dev)
@@ -897,14 +1076,14 @@ def main() -> None:
     sel[::5, 1] = N  # sentinel selections, as done queries and exhausted beams give
     sel[::17, 0] = N
     ps_err = 0.0
-    for t in (0, GRAPH_CFG["packed_topt"]):
+    for t in (0, cfg.packed_topt):
         ps_err = max(ps_err, hold_packed(torch, "canonical", args, sel, q400, t))
     # negative partial distances: each query a scaled copy of one of its
     # first node's rows, so 2 q.x > |x|^2 there (no |q|^2, no clamp)
     sel_neg = sel.clone()
     sel_neg[:, 0] = torch.where(sel[:, 0] == N, 0, sel[:, 0])
     qneg = 3.0 * g.packed[sel_neg[:, 0].long(), 1].float()
-    for t in (0, GRAPH_CFG["packed_topt"]):
+    for t in (0, cfg.packed_topt):
         ps_err = max(ps_err, hold_packed(torch, "negative", args, sel_neg, qneg, t, min_negative=M_QUERIES // 2))
     # all-tie blocks: 4096 copies of one integer-valued row, each node with
     # 120 distinct random neighbours (every seventh with a sentinel tail),
@@ -922,7 +1101,7 @@ def main() -> None:
     tie_args = build_packed(tie_rows, tie_norms, adj_t)
     sel_t = torch.where(sel == N, nt, sel % nt).to(torch.int32)
     qtie = torch.round(2.0 * q400).clamp(-4, 4)
-    for t in (0, GRAPH_CFG["packed_topt"]):
+    for t in (0, cfg.packed_topt):
         ps_err = max(ps_err, hold_packed(torch, "all_tie", tie_args, sel_t, qtie, t, exact=True))
     del tie_args, adj_t
 
@@ -999,16 +1178,16 @@ def main() -> None:
               bound_by=flat_bound[1], achieved_tflops=f"{2.0 * FLAT_CHUNK * N * D / (ms * 1e-3) / 1e12:.1f}",
               card=card)
 
-    qt = torch.from_numpy(rng.standard_normal((GRAPH_CFG["query_block"], D)).astype(np.float32))
+    qt = torch.from_numpy(rng.standard_normal((cfg.query_block, D)).astype(np.float32))
     qt = qt.to(torch.bfloat16).to(dev).float()
-    bd0, bi0, _ = entry_beam(g, qt, EF, GRAPH_CFG["entry_seeds"])
-    fargs = (*args, qt, bd0, bi0, ef, GRAPH_CFG["query_expand"], topt, 8 * ef + 16)
+    bd0, bi0, _ = entry_beam(g, qt, EF, cfg.entry_seeds)
+    fargs = (*args, qt, bd0, bi0, ef, cfg.query_expand, topt, 8 * ef + 16)
     fused_ms = event_ms(lambda: fused_search_cuda(*fargs), reps=5)
     fused_plain_ms = event_ms(lambda: fused_search_plain(*fargs), reps=1)
     # bytes the traversal must read: per expansion one RS x D bf16 block plus
     # RS norms and RS ids (ncomp counts RS per expansion); queries and beams in and out
     rs = g.packed.shape[1]
-    Bq = GRAPH_CFG["query_block"]
+    Bq = cfg.query_block
     expansions = int(fused_search_cuda(*fargs)[2].sum()) / rs
     fused_bound = bound(expansions * rs * (2 * D + 8) + Bq * (D * 4 + 4 * EF * 4 + 8), expansions * rs * D * 2.0)
     times["fused_search"] = dict(ms=fused_ms, plain_ms=fused_plain_ms, library_ms=None,
@@ -1019,7 +1198,7 @@ def main() -> None:
           achieved_tb_per_s=f"{expansions * rs * (2 * D + 8) / (fused_ms * 1e-3) / 1e12:.2f}", card=card)
     del bd0, bi0, fargs
 
-    t4 = GRAPH_CFG["packed_topt"]
+    t4 = cfg.packed_topt
     rt = g.packed_norms.shape[1]
     for B in K4_B:
         qs = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
@@ -1049,7 +1228,7 @@ def main() -> None:
     # ---- 9-12. quantized serving ------------------------------------------
     del args  # the bf16 layout: the flip below drops it from the graph
     graph.set_ef_search(120)
-    qres = quantized_phases(torch, dev, ds, graph, card, topt)
+    qres = quantized_phases(torch, dev, ds, graph, cfg, card, topt)
     launches.update(qres["launches"])
     times.update(qres["times"])
     for label, err in qres["flat_err"].items():
@@ -1082,11 +1261,16 @@ def main() -> None:
           f"a probe kernel was never launched on the probes path: {launches['probes']}")
     trace_phase(torch, qres["flat_i8"], card)
 
+    # ---- 19. the canonical bench; 20. the CLI's 24-job sweep ----------------
+    launches["bench"] = bench_phase(work, card)
+    launches["cli"], cli_err = cli_phase(dev, ds, work, card)
+    work_dir.cleanup()
+
     rows = [
         ("fused_search", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:69",
-         launches["batched"]["fused_search"], fused_err),
+         launches["batched"]["fused_search"], max(fused_err, cli_err["fused_search"])),
         ("fused_search_s8", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:258",
-         quant["fused_search_s8"], qres["fused_s8_err"]),
+         quant["fused_search_s8"], max(qres["fused_s8_err"], cli_err["fused_search_s8"])),
         ("flat_topk", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:147",
          launches["batched"]["flat_topk"], flat_err["flat_topk"]),
         ("flat_topk_s8", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:211",
