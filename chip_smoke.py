@@ -103,7 +103,29 @@ Phases, one line each:
                    file, bf16 and s8 blocks, answering as the reused jobs did,
                    and K1 and K1-s8 against their plain versions there at the
                    grid's own arguments (query_expand=1, no entry seeds, ef 10
-                   and 60).
+                   and 60);
+ 21. ortho         the canonical config with ortho_count=2 built through
+                   AntitopoEngine on the card: build seconds, layers, the rows
+                   it shares with phase 4's graph (all of them at the default
+                   ortho_bias=0: no penalty is negative, so the union is the
+                   plain list), recall@10 at ef 100 / 120 through K1 beside the
+                   ortho_count=1 graph's (>= 0.95 at ef=120), K1 launched and
+                   K4 not; then ortho_bias=-1, ortho_count 1 and 2, whose rows
+                   must differ on at least 10% of the nodes;
+ 22. million       the million-row path: generate_synthetic_clustered(MILLION_N,
+                   400, 128, seed=0), exact ground truth on the card,
+                   build_index on its auto route (the one-device distributed
+                   builder, K2 as the candidate scan) at M=48, efc = prune_cand
+                   = 300: build seconds per stage, peak memory, exactly waves x
+                   segments K2 launches, the graph's invariants, K2 held to its
+                   plain version on the first wave's first segment (4096 x
+                   333,824, k=128) and timed there beside its bound and the
+                   library chain; then s8 blocks at ef 40 / 80 / 120 (expand 2,
+                   cand 8; recall@10 >= 0.98 at ef=80) and the flat engines
+                   (fused >= 0.99, fused_i8 >= 0.97), with host-clock QPS;
+                   after the counts are read, K1-s8 on the million-row s8
+                   layout (ef 80), K2 over the 1M rows (k=10) and K2-s8 over
+                   the 1M codes (k=30), each held to its plain version.
 Then the script's run time, the kernel summary as JSON, the card's name
 and power limit as nvidia-smi prints them, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -146,6 +168,7 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}  # f32: outside the t
 QUANT_EFS = (100, 110, 120)  # bench.py:306 (s8 blocks)
 WIRE_EFS = (110, 120)  # bench.py:329 (i8 query wire)
 FLAT_S8_KS = (30, 100)  # 30: fused_i8's scan at k=10 (rerank_mult=3)
+MILLION_N = 1_000_000  # phase 22's corpus (tools/bench_1m.py --data clustered)
 
 
 def graph_cfg():
@@ -939,6 +962,202 @@ def cli_phase(dev, ds, work: str, card: str) -> tuple:
     return launches, errs
 
 
+def ortho_phase(dev, ds, card: str, ortho1_recall: dict, ortho1_adj) -> dict:
+    """Phase 21: the canonical config with ``ortho_count=2`` (the penalized
+    candidate passes and their union) built through AntitopoEngine on the
+    card, counts reset just before it; the 400 queries through K1 at ef 100
+    and 120 beside the ortho_count=1 graph's recall.  Gates: recall@10 >= 0.95
+    at ef=120, no self edge, no duplicate result, K1 launched and K4 not.
+    With the default ortho_bias=0 no penalty is negative, so the union is the
+    plain candidate list and the rows those of phase 4's graph (printed);
+    then ortho_bias=-1 against ortho_count=1 at that bias, where the passes
+    must change at least 10% of the rows (printed with its recall, no
+    recall gate).  Returns the path's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from expann_tpu_torch import AntitopoEngine
+    from expann_tpu_torch.ops import _kernels
+
+    def build(**over):
+        eng = AntitopoEngine(config=dataclasses.replace(graph_cfg(), **over), device=dev)
+        eng.store_many_vectors(ds.vecs)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng.build()
+        return eng, time.perf_counter() - t0
+
+    _kernels.launches.clear()
+    eng, build_s = build(ortho_count=2)
+    adj = eng.graph.adj_bottom[:N]
+    check(not bool((adj == torch.arange(N, device=dev)[:, None]).any()), "the ortho_count=2 graph has self edges")
+    same = int((adj == ortho1_adj[:N]).all(1).sum())
+    phase("ortho", ortho_count=2, build_seconds=f"{build_s:.2f}", layers=len(eng.graph.layers),
+          degree_mean=f"{float((adj < N).sum(1).float().mean()):.2f}",
+          build_peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+          rows_identical_to_ortho_count_1=f"{same}/{N}", card=card)
+    rec = {}
+    for ef in (100, 120):
+        eng.set_ef_search(ef)
+        ids = eng.query_k_batch(ds.queries, K)
+        check(ids.shape == (M_QUERIES, K) and rows_unique(ids), f"ortho_count=2 results at ef={ef}: shape or duplicates")
+        rec[ef] = recall(ids, ds.ground_truth)
+        phase("ortho", ortho_count=2, ef=ef, recall_at_10=f"{rec[ef]:.4f}",
+              ortho_count_1_recall_at_10=f"{ortho1_recall[ef]:.4f}",
+              distcomps_per_query=f"{eng.num_distcomps / M_QUERIES:.1f}")
+    launches = dict(_kernels.launches)
+    phase("launches", path="ortho", **launches)
+    check(rec[120] >= 0.95, f"ortho_count=2 recall@10 at ef=120 {rec[120]} < 0.95")
+    check(launches.get("fused_search", 0) > 0 and launches.get("packed_score", 0) == 0,
+          f"the ortho_count=2 graph's 400-query calls did not take K1 alone: {launches}")
+    del eng
+
+    graphs = {oc: build(ortho_count=oc, ortho_bias=-1.0) for oc in (1, 2)}
+    a1, a2 = (graphs[oc][0].graph.adj_bottom[:N] for oc in (1, 2))
+    same = int((a1 == a2).all(1).sum())
+    for oc, (eng_b, secs) in graphs.items():
+        eng_b.set_ef_search(120)
+        r = recall(eng_b.query_k_batch(ds.queries, K), ds.ground_truth)
+        phase("ortho", ortho_count=oc, ortho_bias=-1.0, build_seconds=f"{secs:.2f}", ef=120, recall_at_10=f"{r:.4f}",
+              rows_identical_between_the_two=f"{same}/{N}")
+    check(same <= 0.9 * N, f"ortho_bias=-1: ortho_count=2 left {same}/{N} rows as ortho_count=1's")
+    return launches
+
+
+def adjacency_invariants(torch, adj, n: int, cap: int) -> dict:
+    """The bottom rows ``adj`` (n, R) of a built graph: no self edge, no
+    duplicate, the sentinel n only after a row's last edge, 1..cap edges a
+    row.  Raises on a breach; returns the degree summary."""
+    real = adj < n
+    check(bool((adj <= n).all()) and bool((adj >= 0).all()), "adjacency ids out of range")
+    check(not bool((adj == torch.arange(n, device=adj.device)[:, None]).any()), "a row holds its own id")
+    s = torch.sort(adj, dim=1).values
+    check(not bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] < n)).any()), "a row holds an id twice")
+    check(not bool((real[:, 1:] & ~real[:, :-1]).any()), "a sentinel before a row's last edge")
+    deg = real.sum(1)
+    check(int(deg.min()) >= 1 and int(deg.max()) <= cap, f"degrees {int(deg.min())}..{int(deg.max())} outside 1..{cap}")
+    return dict(degree_min=int(deg.min()), degree_max=int(deg.max()), degree_mean=f"{float(deg.float().mean()):.2f}")
+
+
+def million_phase(torch, dev, card: str) -> dict:
+    """Phase 22: the million-row path.  ``generate_synthetic_clustered(
+    MILLION_N, 400, 128, seed=0)`` (the hardened mixture), exact ground
+    truth on the card, then ``build_index`` on the auto route (above
+    ``auto_wave_threshold``: the distributed one-shot builder, flat
+    candidates through K2) with M=48, efc = prune_cand = 300, counts reset
+    just before it: build seconds per stage (the builder prints them), peak
+    device memory, exactly waves x n_seg K2 launches; K2 held to its plain
+    version on the first wave's first segment and timed there beside its
+    bound and the library chain; the graph's invariants.  Then, counts
+    reset again, serving: s8 blocks at ef 40 / 80 / 120 (expand 2, cand 8,
+    8 entry seeds), recall@10 >= 0.98 at ef=80; flat ``fused`` >= 0.99 and
+    ``fused_i8`` >= 0.97; host-clock QPS of each.  Then, after the counts
+    are read, K1-s8 on the million-row s8 layout, K2 over the 1M rows at
+    k=10 and K2-s8 over the 1M codes at k=30, each held to its plain
+    version on the 400 queries.  Returns the two paths' launch counts, K2's
+    times at the build shape and each kernel's largest error."""
+    from expann_tpu_torch.data.loader import generate_synthetic_clustered
+    from expann_tpu_torch.models.brute_force import BruteForceEngine
+    from expann_tpu_torch.models.build import BuildConfig, build_index
+    from expann_tpu_torch.ops import _kernels
+    from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_plain, quantize_query_i8
+    from expann_tpu_torch.parallel.distbuild import flat_segments
+    from expann_tpu_torch.tools.bench_1m import flat_point, graph_engine, graph_point
+    from expann_tpu_torch.utils.profiling import event_ms
+
+    n, M, efc, W = MILLION_N, 48, 300, 4096
+    t0 = time.perf_counter()
+    x, q = generate_synthetic_clustered(n, M_QUERIES, D, seed=0)
+    bf = BruteForceEngine(mode="exact", batch_size=100, device=dev)
+    bf.store_many_vectors(x)
+    bf.build()
+    gt = bf.query_k_batch(q, K)
+    del bf
+    phase("million", n=n, d=D, queries=M_QUERIES, data="clustered hardened seed=0",
+          data_and_truth_seconds=f"{time.perf_counter() - t0:.1f}")
+
+    cfg = BuildConfig(M=M, ef_construction=efc, prune_cand=efc)
+    check(n > cfg.auto_wave_threshold, f"n={n} does not take the distributed route")
+    _kernels.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph = build_index(x, cfg, dev, verbose=True)
+    build_s = time.perf_counter() - t0
+    build_launches = dict(_kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    seg_rows, kk = flat_segments(n, efc)
+    n_seg = (n + seg_rows - 1) // seg_rows
+    waves = (n + W - 1) // W
+    phase("million", build_seconds=f"{build_s:.1f}", peak_gib=f"{peak:.2f}", layers=len(graph.layers),
+          waves=waves, segments=n_seg, k=kk, card=card)
+    phase("launches", path="million_build", **build_launches)
+    check(build_launches == {"flat_topk": waves * n_seg},
+          f"the build launched {build_launches}, not exactly {waves} x {n_seg} K2 calls")
+    inv = adjacency_invariants(torch, graph.adj_bottom[:n], n, 2 * M)
+    phase("million", **inv)
+
+    # K2 on the first wave's first segment: the shape the build gives it
+    wq = graph.vectors[:W]
+    xs = graph.vectors[:seg_rows].to(torch.bfloat16)
+    err = hold_flat_bf16(torch, "million_scan", flat_topk_cuda, wq, xs, kk)
+    ms = event_ms(lambda: flat_topk_cuda(wq, xs, kk), reps=5)
+    plain_ms = event_ms(lambda: flat_topk_plain(wq, xs, kk), reps=1)
+    qb = wq.to(torch.bfloat16)
+    xn = (xs.float() ** 2).sum(1)
+
+    def chain():  # one bf16 product with f32 results, then top-k
+        return torch.topk(xn - 2.0 * torch.mm(qb, xs.T, out_dtype=torch.float32), kk, dim=1, largest=False)
+
+    lib_ms = event_ms(chain, reps=5)
+    b = bound(seg_rows * D * 2 + W * D * 2 + W * kk * 8, 2.0 * W * seg_rows * D)
+    build_times = dict(build_ms=ms, build_plain_ms=plain_ms, build_library_ms=lib_ms, build_bound_ms=b[0],
+                       build_bound_by=b[1], build_launches=build_launches["flat_topk"])
+    phase("times", kernel="flat_topk", path="million_build", B=W, n=seg_rows, k=kk, ms=f"{ms:.3f}",
+          plain_ms=f"{plain_ms:.3f}", library_ms=f"{lib_ms:.3f}", vs_library=f"{lib_ms / ms:.2f}x",
+          bound_ms=f"{b[0]:.4f}", bound_by=b[1],
+          achieved_tflops=f"{2.0 * W * seg_rows * D / (ms * 1e-3) / 1e12:.1f}", card=card)
+    del wq, xs, qb, xn
+
+    _kernels.launches.clear()
+    rng = np.random.default_rng(99)
+    eng = graph_engine(graph, D, M, 8192, "bf16", dev)
+    rec = {}
+    for ef in (40, 80, 120):
+        pt = graph_point(eng, q, gt, 2, ef, 8, "i8", rng, QPS_QUERIES // 2)
+        rec[ef] = pt["recall"]
+        phase("million", **pt, card=card)
+    flat, flat_eng = {}, {}
+    for mode in ("fused", "fused_i8"):
+        pt, flat_eng[mode] = flat_point(x, q, gt, mode, "bf16", rng, FLAT_CHUNK, dev)
+        flat[mode] = pt["recall"]
+        phase("million", **pt, card=card)
+    serve_launches = dict(_kernels.launches)
+    phase("launches", path="million_serve", **serve_launches)
+    check(rec[80] >= 0.98, f"million-row recall@10 on s8 blocks at ef=80 {rec[80]} < 0.98")
+    check(flat["fused"] >= 0.99, f"million-row flat recall@10 {flat['fused']} < 0.99")
+    check(flat["fused_i8"] >= 0.97, f"million-row flat fused_i8 recall@10 {flat['fused_i8']} < 0.97")
+    check(all(serve_launches.get(k, 0) > 0 for k in ("fused_search_s8", "flat_topk", "flat_topk_s8")),
+          f"a kernel of the million-row serving path was never launched: {serve_launches}")
+
+    # the serving kernels against their plain versions at the shapes this
+    # path gives them: K1-s8 on the million-row s8 layout (R0 = 96 slots a
+    # block), K2 over the 1M bf16 rows at k=10, K2-s8 over the 1M codes at
+    # fused_i8's scan width
+    qg = torch.from_numpy(q).to(torch.bfloat16).to(dev).float()
+    s8_err = hold_fused(torch, "million_s8", eng.graph, qg, 80, 2, 8, 8, gt)
+    del eng, graph
+    fe = flat_eng["fused"]
+    flat_err = hold_flat_bf16(torch, "million_flat", flat_topk_cuda, qg.to(torch.bfloat16), fe._x_fused, K)
+    fe = flat_eng["fused_i8"]
+    q8 = torch.from_numpy(quantize_query_i8(q, fe._i8_center, fe._i8_scale)).to(dev)
+    flat_s8_err = hold_flat_s8(torch, "million_flat_s8", flat_topk_cuda, q8, fe._x_fused,
+                               min(fe.rerank_mult * K, 128))
+    del flat_eng, fe
+    return dict(build=build_launches, serve=serve_launches, err=err, times=build_times, s8_err=s8_err,
+                flat_err=flat_err, flat_s8_err=flat_s8_err)
+
+
 def main() -> None:
     import torch
 
@@ -1266,15 +1485,22 @@ def main() -> None:
     launches["cli"], cli_err = cli_phase(dev, ds, work, card)
     work_dir.cleanup()
 
+    # ---- 21. ortho_count=2 on the canonical config; 22. the million-row path
+    launches["ortho"] = ortho_phase(dev, ds, card, graph_recall, g.adj_bottom)
+    mres = million_phase(torch, dev, card)
+    launches["million_build"], launches["million_serve"] = mres["build"], mres["serve"]
+
     rows = [
         ("fused_search", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:69",
          launches["batched"]["fused_search"], max(fused_err, cli_err["fused_search"])),
         ("fused_search_s8", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:258",
-         quant["fused_search_s8"], max(qres["fused_s8_err"], cli_err["fused_search_s8"])),
+         quant["fused_search_s8"] + mres["serve"]["fused_search_s8"],
+         max(qres["fused_s8_err"], cli_err["fused_search_s8"], mres["s8_err"])),
         ("flat_topk", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:147",
-         launches["batched"]["flat_topk"], flat_err["flat_topk"]),
+         launches["batched"]["flat_topk"] + mres["build"]["flat_topk"] + mres["serve"]["flat_topk"],
+         max(flat_err["flat_topk"], mres["err"], mres["flat_err"])),
         ("flat_topk_s8", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:211",
-         quant["flat_topk_s8"], flat_err["flat_topk_s8"]),
+         quant["flat_topk_s8"] + mres["serve"]["flat_topk_s8"], max(flat_err["flat_topk_s8"], mres["flat_s8_err"])),
         ("flat_topk_fixed", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:39",
          launches["flat_fixed"]["flat_topk_fixed"], flat_err["flat_fixed"]),
         ("flat_topk_fixed_s8", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:65",
@@ -1292,7 +1518,7 @@ def main() -> None:
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n_launch,
-         "max_abs_err": err, **times[name]}
+         "max_abs_err": err, **times[name], **(mres["times"] if name == "flat_topk" else {})}
         for name, src, rep, n_launch, err in rows
     ]
     phase("total", seconds=f"{time.perf_counter() - t_start:.1f}")

@@ -1,5 +1,6 @@
-"""Dataset loaders: synthetic Gaussian + SIFT1M fvecs/ivecs (copy of
-expann_tpu/data/loader.py; ground truth from this package's exact engine).
+"""Dataset loaders: synthetic Gaussian, the clustered million-row corpus
+and SIFT1M fvecs/ivecs (copy of expann_tpu/data/loader.py; ground truth
+from this package's exact engine).
 
 Counterpart of the reference dataset_loader (src/dataset_loader.h):
 synthetic N(0,1) vectors with brute-force ground truth cached to JSON
@@ -49,6 +50,91 @@ def generate_synthetic(
             if not bad.any():
                 break
             arr[bad] = rng.standard_normal((int(bad.sum()), d)).astype(np.float32)
+    return vecs, queries
+
+
+def generate_synthetic_clustered(
+    n: int,
+    m: int,
+    d: int,
+    n_clusters: int = 1000,
+    sigma: float = 0.3,
+    seed: Optional[int] = None,
+    uniform: bool = False,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Mixture-of-Gaussians synthetic data modeling the LOW intrinsic
+    dimension of real ANN corpora (SIFT1M: ~15).  No reference counterpart
+    (its synthetic generator is isotropic Gaussian,
+    src/randomgeometry.h:73-96); isotropic Gaussian d=128 at N=1e6 is a
+    curse-of-dimensionality regime where every graph method degrades
+    (BENCH_NOTES million-row section).
+
+    Deliberately NOT flattering to graph search (round-2 VERDICT asked
+    for a harder stand-in than equal isotropic clusters):
+
+      * cluster masses are Zipf-ish (``(rank + 3)^-0.6``) — some clusters
+        hold ~30x the mass of others, like real corpora,
+      * per-cluster ANISOTROPY: each cluster's spread is scaled per-axis
+        by lognormal factors (sigma_eff in ~[sigma/3, 3*sigma]), so local
+        neighbourhood geometry varies across the corpus,
+      * per-cluster overall scale also varies (lognormal), producing both
+        tight and diffuse regions,
+      * queries are drawn from the SAME mixture but with 1.5x the
+        within-cluster spread, so queries are NOT near-corpus-points
+        (SIFT queries are held-out images, not corpus perturbations), and
+        a 10% slice is drawn from between-cluster interpolations (off-mode
+        queries with no dominant basin).
+
+    ``uniform=True`` restores the round-2 equal-mass isotropic generator
+    (for reproducing earlier numbers)."""
+    rng = np.random.default_rng(42 if seed is None else seed)
+    centers = rng.standard_normal((n_clusters, d)).astype(np.float32)
+    if uniform:
+
+        def draw(count, spread=1.0):
+            which = rng.integers(0, n_clusters, size=count)
+            return (
+                centers[which]
+                + sigma * rng.standard_normal((count, d)).astype(np.float32)
+            ).astype(np.float32)
+
+        return draw(n), draw(m)
+
+    # Zipf-ish masses, anisotropic per-axis scales, per-cluster size factor
+    mass = (np.arange(n_clusters) + 3.0) ** -0.6
+    mass = mass / mass.sum()
+    axis_scale = np.exp(
+        rng.normal(0.0, 0.45, size=(n_clusters, d))
+    ).astype(np.float32)
+    clus_scale = np.exp(rng.normal(0.0, 0.35, size=(n_clusters, 1))).astype(
+        np.float32
+    )
+
+    def draw(count, spread=1.0):
+        which = rng.choice(n_clusters, size=count, p=mass)
+        noise = rng.standard_normal((count, d)).astype(np.float32)
+        return (
+            centers[which]
+            + sigma
+            * spread
+            * clus_scale[which]
+            * axis_scale[which]
+            * noise
+        ).astype(np.float32)
+
+    vecs = draw(n)
+    m_mix = m // 10
+    q_main = draw(m - m_mix, spread=1.5)
+    # between-cluster interpolations: no dominant basin
+    a = rng.integers(0, n_clusters, size=m_mix)
+    b = rng.integers(0, n_clusters, size=m_mix)
+    t = rng.uniform(0.25, 0.75, size=(m_mix, 1)).astype(np.float32)
+    q_between = (
+        centers[a] * t
+        + centers[b] * (1.0 - t)
+        + sigma * rng.standard_normal((m_mix, d)).astype(np.float32)
+    ).astype(np.float32)
+    queries = np.concatenate([q_main, q_between], axis=0)
     return vecs, queries
 
 

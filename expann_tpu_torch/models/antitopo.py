@@ -28,8 +28,11 @@ evaluations of queries and ``num_distcomps_compressed`` the quantized ones
 (RECORD_STATS, src/antitopo_engine.h:125-129); both reset on ``build`` and
 on ``set_ef_search``.
 
-Not ported yet: ``ortho_count > 1`` and the wave builders; they raise
-``NotImplementedError``.
+``build`` takes the one-shot builder up to 131072 rows (``BuildConfig.
+auto_wave_threshold``) and the one-device distributed builder above it, or
+with ``builder="dist"`` (models/build.build_index).  Not
+ported yet: the wave builders (``builder="wave"``, and a second ``build``
+after more vectors are stored); they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -89,7 +92,8 @@ class AntitopoConfig:
     prune_cand: int = 0  # candidate-list cap fed to the prune; 0 -> auto
     query_block: int = 1024
     query_expand: int = 1  # beam entries expanded per traversal iteration
-    builder: str = "auto"  # "oneshot" | "auto"
+    builder: str = "auto"  # "oneshot" | "dist" | "auto"
+    wave_size: int = 1024  # distributed builder: rows per wave (4096 at least)
     # codes of use_compression: "simple" (the reference's uint8 cast) or
     # "ranged" (min/max affine q8, src/quantizer.h:186-238)
     quant_mode: str = "simple"
@@ -251,6 +255,7 @@ class AntitopoEngine(Engine):
             prune_cand=c.prune_cand,
             seed=c.seed,
             builder=c.builder,
+            wave_size=c.wave_size,
         )
 
     def _attach_codes(self) -> None:

@@ -15,14 +15,21 @@ dense passes, each plain tensor code on the index's device:
      rows within the edge cap keep append order, overflowing rows are
      re-pruned over their (d, id)-sorted union.
 
+With ``ortho_count > 1`` step 2 runs ``ortho_count`` passes, as the
+reference runs that many searches per insert (src/antitopo_engine.h:396-423):
+pass 0 is the plain k-NN, pass i an exact scan by the ortho-penalized score
+against the first-place ids of the earlier passes (``ortho_knn``), and the
+union keeps each id's best carried score.
+
 Controlled divergence kept from the JAX package (reverse-pass cap):
 incoming edges per destination go into A = min(2*cap, 4096) slots in
 (source chunk of 8192 rows, d, source) order; a hub receiving more drops
 the excess.
 
-Not ported yet: ``ortho_count > 1`` (the ortho-penalized candidate scans)
-and the wave / distributed builders for n > 131072; both raise
-``NotImplementedError``.
+``build_index`` sends a corpus above ``auto_wave_threshold`` rows (or
+``builder="dist"``) to the one-device distributed builder
+(parallel/distbuild.py), as the JAX package does; the wave builder
+(``builder="wave"``) is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -85,6 +92,133 @@ def exact_knn(
         ids[s:e] = idx[:, :C].to(torch.int32)
         dist[s:e] = d_s[:, :C]
     return ids, dist
+
+
+def sort_rows(primary: torch.Tensor, secondary: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort each row of ``(primary, secondary)`` lexicographically
+    (``jax.lax.sort`` with ``num_keys=2``): returns both, reordered."""
+    o = torch.sort(secondary, dim=1, stable=True).indices
+    p, s = primary.gather(1, o), secondary.gather(1, o)
+    o = torch.sort(p, dim=1, stable=True).indices
+    return p.gather(1, o), s.gather(1, o)
+
+
+def penalized_topk(
+    qv: torch.Tensor,  # (r, D) query rows
+    qn: torch.Tensor,  # (r,) their squared norms
+    qids: torch.Tensor,  # (r,) their own ids, scored +inf
+    vecs: torch.Tensor,  # (>= frontier, D) candidate rows
+    norms: torch.Tensor,
+    frontier: int,
+    C: int,
+    col_block: int,
+    chosen: Optional[torch.Tensor] = None,  # (r, OC) ids of previously chosen entry points
+    chosen_valid: Optional[torch.Tensor] = None,  # (r, OC) bool
+    ortho_factor: float = 0.0,
+    ortho_bias: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-C of the rows ``qv`` among rows [0, frontier) of ``vecs``
+    by the squared distance or, with ``chosen``, the ortho-penalized score
+    (src/antitopo_engine.h:342-351):
+
+        score(c) = d2(q, c) + sum over valid chosen p of
+                   [d2(p, c) < d2(q, c)] * (ortho_factor * (d2(q, c) - d2(p, c)) + ortho_bias)
+
+    streamed over blocks of ``col_block`` columns with a running top-C, so
+    memory is O(r * (C + OC * col_block)) whatever the corpus size.  A
+    row's own id scores +inf.  Returns ``(ids, score)`` int64 / f32 of shape
+    (r, min(C, frontier)), ordered by (score, id)."""
+    r = qv.shape[0]
+    dev = qv.device
+    if chosen is not None:
+        ch = torch.clamp_max(chosen.long(), vecs.shape[0] - 1)
+        pv, pn = vecs[ch].float(), norms[ch]  # (r, OC, D), (r, OC)
+    run_s = torch.empty((r, 0), dtype=torch.float32, device=dev)
+    run_i = torch.empty((r, 0), dtype=torch.int64, device=dev)
+    rows = torch.arange(r, device=dev)
+    for c in range(0, frontier, col_block):
+        ce = min(c + col_block, frontier)
+        xv, xn = vecs[c:ce], norms[c:ce]
+        score = pairwise_dist2(qv, xv, x_norms=xn, q_norms=qn)
+        if chosen is not None:
+            co = pn[:, :, None] + xn[None, None, :] - 2.0 * torch.einsum("rod,cd->roc", pv, xv.float())
+            hit = (co < score[:, None, :]) & chosen_valid[:, :, None]
+            pen = torch.where(hit, ortho_factor * (score[:, None, :] - co) + ortho_bias, 0.0)
+            score = score + pen.sum(dim=1)
+        own = (qids >= c) & (qids < ce)
+        score[rows[own], (qids[own] - c).long()] = INF
+        # columns ascend, so a stable sort of [running, block] by score
+        # keeps ties in id order
+        blk_s, idx = torch.sort(score, dim=1, stable=True)
+        kk = min(C, ce - c)
+        run_s = torch.cat([run_s, blk_s[:, :kk]], dim=1)
+        run_i = torch.cat([run_i, idx[:, :kk] + c], dim=1)
+        o = torch.sort(run_s, dim=1, stable=True).indices[:, :C]
+        run_s, run_i = run_s.gather(1, o), run_i.gather(1, o)
+    return run_i, run_s
+
+
+def ortho_knn(
+    vecs: torch.Tensor,  # (n, D)
+    norms: torch.Tensor,  # (n,)
+    chosen: torch.Tensor,  # (n, OC) ids of previously chosen entry points
+    chosen_valid: torch.Tensor,  # (n, OC) bool
+    ortho_factor: float,
+    ortho_bias: float,
+    C: int,
+    row_block: int,
+    col_block: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-C of every row among all rows by the ortho-penalized score
+    (counterpart of ``ortho_knn_device``): ``penalized_topk`` over blocks of
+    ``row_block`` rows, the self column +inf.  Returns ``(ids, score)`` of
+    shape (n, C) ordered by (score, id); the carried value is the penalized
+    score, which feeds the prune (src/antitopo_engine.h:415-423)."""
+    n = vecs.shape[0]
+    dev = vecs.device
+    ids_out = torch.full((n, C), n, dtype=torch.int32, device=dev)
+    s_out = torch.full((n, C), INF, dtype=torch.float32, device=dev)
+    for s in range(0, n, row_block):
+        e = min(s + row_block, n)
+        ids, sc = penalized_topk(vecs[s:e], norms[s:e], torch.arange(s, e, device=dev), vecs, norms, n, C,
+                                 col_block, chosen[s:e], chosen_valid[s:e], ortho_factor, ortho_bias)
+        s_out[s:e, : sc.shape[1]] = sc
+        ids_out[s:e, : sc.shape[1]] = ids.to(torch.int32)
+    return ids_out, s_out
+
+
+def ortho_union(
+    ids0: torch.Tensor,
+    d0: torch.Tensor,
+    ortho_count: int,
+    penalized_pass,
+    C: int,
+    sentinel: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``ortho_count`` candidate passes and their union
+    (expann_tpu/models/build.py:521-563, parallel/distbuild.py:235-264).
+    Pass 0 is ``(ids0, d0)``, ordered by (d, id); pass i is
+    ``penalized_pass(chosen, chosen_valid)`` against the first-place ids of
+    passes 0..i-1 (a repeat of an earlier one is marked invalid).  The union
+    keeps each id's best carried score, ordered by (score, id), cut to C."""
+    all_ids, all_d = [ids0], [d0]
+    chosen_cols = [ids0[:, 0]]
+    for i in range(1, ortho_count):
+        valid_cols = [torch.ones_like(chosen_cols[0], dtype=torch.bool)]
+        for j in range(1, i):
+            dup = torch.zeros_like(valid_cols[0])
+            for k in range(j):
+                dup |= chosen_cols[j] == chosen_cols[k]
+            valid_cols.append(~dup)
+        ids_i, d_i = penalized_pass(torch.stack(chosen_cols, dim=1), torch.stack(valid_cols, dim=1))
+        all_ids.append(ids_i)
+        all_d.append(d_i)
+        chosen_cols.append(ids_i[:, 0])
+    i_s, d_s = sort_rows(torch.cat(all_ids, dim=1), torch.cat(all_d, dim=1))
+    rep = torch.zeros_like(i_s, dtype=torch.bool)
+    rep[:, 1:] = i_s[:, 1:] == i_s[:, :-1]
+    d_u, i_u = sort_rows(torch.where(rep, INF, d_s), torch.where(rep, sentinel, i_s))
+    return i_u[:, :C], d_u[:, :C]
 
 
 def prune_all(
@@ -226,11 +360,16 @@ class BuildConfig:
     prune_overflow: int = 0
     prune_cand: int = 0  # 0 -> min(ef_construction, 256)
     seed: int = 0
-    # rows per exact-kNN distance block and per prune block: memory bounds
-    # only, the graph does not depend on them
+    # rows per exact-kNN distance block and per prune block, columns per
+    # ortho-penalized scan block: memory bounds only, the graph does not
+    # depend on them
     row_block: int = 2048
+    col_block: int = 8192
     prune_block: int = 2048
-    builder: str = "auto"  # "oneshot" | "auto" (wave builders not ported)
+    # "oneshot", "dist" (parallel/distbuild.py) or "auto": the distributed
+    # builder above auto_wave_threshold rows ("wave" is not ported)
+    builder: str = "auto"
+    wave_size: int = 1024
     auto_wave_threshold: int = 131072
 
     def __post_init__(self):
@@ -245,13 +384,16 @@ def build_layer(
 ) -> torch.Tensor:
     """One layer's adjacency over its member set: ``(n_l, R)`` int32 of
     layer-local slots, sentinel n_l, R = cap rounded up to 16."""
-    if cfg.ortho_count > 1:
-        raise NotImplementedError(
-            "ortho_count > 1 (ortho-penalized candidate scans) is not ported yet: ROADMAP.md queue 1"
-        )
     n = member_vecs.shape[0]
     C = min(cfg.prune_cand, max(n - 1, 1))
     knn_ids, knn_d = exact_knn(member_vecs, member_norms, C, cfg.row_block)
+    if cfg.ortho_count > 1:
+
+        def penalized(chosen, chosen_valid):
+            return ortho_knn(member_vecs, member_norms, chosen, chosen_valid, cfg.ortho_factor,
+                             cfg.ortho_bias, C, cfg.row_block, cfg.col_block)
+
+        knn_ids, knn_d = ortho_union(knn_ids, knn_d, cfg.ortho_count, penalized, C, n)
 
     zero = torch.zeros((1, member_vecs.shape[1]), dtype=torch.float32, device=member_vecs.device)
     inf = torch.full((1,), INF, dtype=torch.float32, device=member_vecs.device)
@@ -299,19 +441,29 @@ def build_upper_layers(
     return tuple(upper)
 
 
-def build_index(x: np.ndarray, cfg: Optional[BuildConfig], device) -> GraphIndex:
-    """Build a GraphIndex over the host corpus ``x`` ``(N, D)`` on ``device``
-    with the one-shot builder (n <= ``cfg.auto_wave_threshold``)."""
+def build_index(x: np.ndarray, cfg: Optional[BuildConfig], device, verbose: bool = False) -> GraphIndex:
+    """Build a GraphIndex over the host corpus ``x`` ``(N, D)`` on ``device``:
+    the one-shot builder, or above ``cfg.auto_wave_threshold`` rows (or with
+    ``builder="dist"``) the one-device distributed builder
+    (expann_tpu/models/build.py:659-696).  ``verbose`` prints the
+    distributed builder's progress and stage seconds."""
     cfg = cfg or BuildConfig()
     x = np.asarray(x, dtype=np.float32)
     n = x.shape[0]
     if n == 0:
         raise ValueError("no vectors to build from")
-    if cfg.builder not in ("auto", "oneshot") or n > cfg.auto_wave_threshold:
-        raise NotImplementedError(
-            f"builder={cfg.builder!r} at n={n}: only the one-shot builder for "
-            f"n <= {cfg.auto_wave_threshold} is ported (wave / distributed builders: ROADMAP.md queue 1)"
-        )
+    if cfg.builder == "wave":
+        raise NotImplementedError("builder='wave' (models/wavebuild.py) is not ported yet: ROADMAP.md queue 1")
+    if cfg.builder not in ("auto", "oneshot", "dist"):
+        raise ValueError(f"builder={cfg.builder!r}: one of 'auto', 'oneshot', 'dist'")
+    if cfg.builder == "dist" or (cfg.builder == "auto" and n > cfg.auto_wave_threshold):
+        from expann_tpu_torch.parallel.distbuild import build_distributed
+
+        # waves of 4096 at least: a million-row corpus pays per-wave costs
+        # ~245 times against ~1000 at 1024
+        graph, _ = build_distributed(x, cfg, device, wave_size=max(cfg.wave_size, 4096), mode="oneshot",
+                                     candidates="auto", verbose=verbose)
+        return graph
     device = torch.device(device)
     vectors, norms = make_corpus(x, device)
     levels, max_layer, sv = draw_levels(n, cfg.M, cfg.seed)

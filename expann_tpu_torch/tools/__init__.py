@@ -10,4 +10,5 @@ the tool's sweep on the card; the perf tools time the serving kernels::
     python -m expann_tpu_torch.tools.probe_lanes          # P4
     python -m expann_tpu_torch.tools.perf_trace           # serving profile
     python -m expann_tpu_torch.tools.perf_flat_mode       # K2 / K3 (bf16, s8) A/B
+    python -m expann_tpu_torch.tools.bench_1m             # the million-row build and serving
 """

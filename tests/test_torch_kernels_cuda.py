@@ -17,6 +17,7 @@ from expann_tpu_torch.ops import _kernels
 from expann_tpu_torch.ops.fused import fused_search, fused_search_plain, topt_for
 from expann_tpu_torch.ops.packed import build_packed, build_packed_i8, packed_score, packed_score_plain
 from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain
+from expann_tpu_torch.parallel import distbuild
 from expann_tpu_torch.tools import perf_pallas_gather, probe_fused, probe_lanes, probe_step_overhead
 from expann_tpu_torch.utils.persist import graph_from_numpy, graph_to_numpy
 
@@ -209,6 +210,35 @@ def test_flat_topk_fixed_identical_to_count(dev, s8, n, B, k, D):
     torch.cuda.synchronize()
     assert torch.equal(d_f, d_c), float((d_f - d_c).abs().nan_to_num().max())
     assert torch.equal(ids_f, ids_c), int((ids_f != ids_c).sum())
+
+
+@pytest.mark.parametrize("n,C,n_seg", [(5000, 128, 2), (5000, 300, 3), (4150, 300, 3), (3000, 128, 2)])
+def test_build_candidate_scan_matches_plain(dev, n, C, n_seg):
+    """The distributed builder's candidate scan (K2 over the corpus in
+    segments at k = min(C + 1, 128)) on the card against the same scan on
+    CPU tensors (flat_topk's plain version): n not a multiple of 1024, C + 1
+    of 129 and 301 (two and three segments), each wave node a corpus row
+    that must not be in its own list, and at n=4150 a last segment of 54
+    rows, shorter than k, whose empty slots must stay masked.  Distances
+    within the flat kernels' tolerance, ids equal but on ties."""
+    rng = np.random.default_rng(n + C)
+    x = torch.from_numpy(rng.standard_normal((n, 128)).astype(np.float32)).to(dev)
+    gids = torch.from_numpy(np.sort(rng.choice(n, 256, replace=False)).astype(np.int32)).to(dev)
+    xs, wq = x.to(torch.bfloat16), x[gids.long()]
+    before = _kernels.launches["flat_topk"]
+    ids, d = distbuild._flat_candidates(xs, wq, gids, C, "count")
+    assert _kernels.launches["flat_topk"] - before == n_seg
+    pids, pd = distbuild._flat_candidates(xs.cpu(), wq.cpu(), gids.cpu(), C, "count")
+    ids, d, gids = ids.cpu(), d.cpu(), gids.cpu()
+    assert ids.shape == (256, C) and not bool((ids == gids[:, None]).any())
+    assert bool(torch.isfinite(d).all()) and bool((ids < n).all())
+    torch.testing.assert_close(d, pd, rtol=1e-5, atol=1e-3)
+    diff = ids != pids
+    assert float(diff.float().mean()) < 0.01
+    if bool(diff.any()):
+        qb, xb = wq.cpu().to(torch.bfloat16).float(), xs.cpu().float()
+        own = ((qb[:, None, :] - xb[ids.long()]) ** 2).sum(-1)
+        torch.testing.assert_close(own[diff], pd[diff], rtol=1e-5, atol=1e-3)
 
 
 def _random_graph(dev, n, R, d, seed):
