@@ -125,7 +125,20 @@ Phases, one line each:
                    (fused >= 0.99, fused_i8 >= 0.97), with host-clock QPS;
                    after the counts are read, K1-s8 on the million-row s8
                    layout (ef 80), K2 over the 1M rows (k=10) and K2-s8 over
-                   the 1M codes (k=30), each held to its plain version.
+                   the 1M codes (k=30), each held to its plain version;
+ 23. wave          the wave builders through AntitopoEngine on the canonical
+                   corpus (counts reset just before): builder="wave" (stage
+                   seconds, waves, beam iterations, peak memory, invariants,
+                   no kernel in the build; recall@10 at ef 100 / 120 through
+                   K1 beside phase 4's, >= 0.90 at ef=120; 32-query calls
+                   through K4 equal to one-query calls; s8 blocks through
+                   K1-s8, >= 0.90); store -> build -> store -> build of
+                   28000 + 28000 rows (invariants, both halves answered,
+                   >= 0.90); refine_index_wave(frac=0.5) (invariants, recall
+                   no more than 0.01 below); wave builds of the first 16384
+                   rows at ortho_count 1 and 2, ortho_bias 0 and -1 (the
+                   rows the counts share, recall); then K1, K4 and K1-s8 on
+                   the wave graph's layouts held to their plain versions.
 Then the script's run time, the kernel summary as JSON, the card's name
 and power limit as nvidia-smi prints them, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -169,6 +182,7 @@ QUANT_EFS = (100, 110, 120)  # bench.py:306 (s8 blocks)
 WIRE_EFS = (110, 120)  # bench.py:329 (i8 query wire)
 FLAT_S8_KS = (30, 100)  # 30: fused_i8's scan at k=10 (rerank_mult=3)
 MILLION_N = 1_000_000  # phase 22's corpus (tools/bench_1m.py --data clustered)
+WAVE_ORTHO_N = 16384  # phase 23 (d): rows of the ortho-pass builds
 
 
 def graph_cfg():
@@ -1158,6 +1172,195 @@ def million_phase(torch, dev, card: str) -> dict:
                 flat_err=flat_err, flat_s8_err=flat_s8_err)
 
 
+def wave_phase(torch, dev, ds, card: str, oneshot_recall: dict) -> dict:
+    """Phase 23: the wave builders on the canonical corpus through
+    AntitopoEngine, counts reset just before the path and read after its
+    last query.  (a) builder="wave" (waves of 1024): stage seconds, waves,
+    beam iterations a wave, peak memory, the adjacency invariants, no kernel
+    launched by the build; recall@10 at ef 100 / 120 through K1 beside
+    phase 4's one-shot graph (>= 0.90 at ef=120), K4 not launched; 32-query
+    calls through K4 whose ids equal one-query calls; s8 blocks at ef=120
+    through K1-s8 (>= 0.90).  (b) store -> build -> store -> build, 28000 +
+    28000 rows, the first build one-shot ("auto"), the second by waves: n,
+    the invariants, answers from both halves, recall@10 at ef=120 >= 0.90.
+    (c) refine_index_wave(frac=0.5) on (a)'s graph: seconds, invariants,
+    recall@10 at ef=120 no more than 0.01 below (a)'s.  (d) the first 16384
+    rows, wave builds at ortho_count 1 and 2 and ortho_bias 0 and -1: the
+    rows the two counts share at each bias, and recall (printed).  Then,
+    after the counts are read, K1 and K4 on (a)'s bf16 layout and K1-s8 on
+    its s8 layout, each held to its plain version.  Returns the path's
+    launch counts and each held kernel's largest error."""
+    import dataclasses
+
+    from expann_tpu_torch import AntitopoEngine, BruteForceEngine
+    from expann_tpu_torch.models.search import _earlier_dup
+    from expann_tpu_torch.models.wavebuild import refine_index_wave
+    from expann_tpu_torch.ops import _kernels
+    from expann_tpu_torch.ops.packed import build_packed
+    from expann_tpu_torch.utils.profiling import event_ms
+
+    cfg = graph_cfg()
+    M0 = cfg.M0
+
+    def engine(**over):
+        return AntitopoEngine(config=dataclasses.replace(cfg, **over), device=dev)
+
+    def serve(eng, ef: int, gt=ds.ground_truth) -> tuple:
+        eng.set_ef_search(ef)
+        ids = eng.query_k_batch(ds.queries, K)
+        check(ids.shape == (M_QUERIES, K) and rows_unique(ids), f"wave path results at ef={ef}: shape or duplicates")
+        return ids, recall(ids, gt)
+
+    def timed_build(eng) -> float:
+        t0 = time.perf_counter()
+        eng.build()
+        return time.perf_counter() - t0
+
+    def stage_seconds(st: dict) -> dict:
+        it = st["wave_iterations"]
+        return dict(**{f"{k}_s": f"{v:.2f}" for k, v in st["seconds"].items()}, waves=st["waves"],
+                    iterations_mean=f"{np.mean(it):.1f}" if it else 0, iterations_max=max(it, default=0),
+                    swept_rows=st["swept_rows"])
+
+    # (a) the wave build and its serving routes
+    _kernels.launches.clear()
+    eng = engine(builder="wave")
+    eng.store_many_vectors(ds.vecs)
+    torch.cuda.reset_peak_memory_stats()
+    build_s = timed_build(eng)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    build_launches = dict(_kernels.launches)
+    phase("wave", builder="wave", wave_size=cfg.wave_size, build_seconds=f"{build_s:.2f}",
+          **stage_seconds(eng.build_stats), peak_gib=f"{peak:.2f}", layers=len(eng.graph.layers), card=card)
+    check(not build_launches, f"the wave build launched a kernel: {build_launches}")
+    phase("wave", **adjacency_invariants(torch, eng.graph.adj_bottom[:N], N, M0))
+    # the construction beam's dedup at the wave's shape: the sort-based
+    # first-occurrence mask of models/search against the all-pairs masks the
+    # JAX package builds (search.py:270-276), on ids with many repeats
+    B, ef_c, kn = cfg.wave_size, cfg.ef_construction, cfg.wave_expand * ((M0 + 64 + 15) // 16 * 16)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    beam = torch.randint(0, 4000, (B, ef_c), generator=gen, device=dev, dtype=torch.int32)
+    nbrs = torch.randint(0, 4000, (B, kn), generator=gen, device=dev, dtype=torch.int32)
+    earlier = torch.ones((kn, kn), dtype=torch.bool, device=dev).tril(-1)
+
+    def all_pairs():
+        in_beam = (nbrs[:, :, None] == beam[:, None, :]).any(-1)
+        return in_beam | ((nbrs[:, :, None] == nbrs[:, None, :]) & earlier).any(-1)
+
+    def by_sort():
+        return _earlier_dup(torch.cat([beam, nbrs], 1))[:, ef_c:]
+
+    check(bool(torch.equal(all_pairs(), by_sort())), "the sort-based dedup mask differs from the all-pairs one")
+    phase("wave", dedup_B=B, ef=ef_c, neighbours=kn, sort_ms=f"{event_ms(by_sort, reps=10):.3f}",
+          all_pairs_ms=f"{event_ms(all_pairs, reps=10):.3f}", card=card)
+    del beam, nbrs, earlier
+    rec = {}
+    for ef in (100, 120):
+        _, rec[ef] = serve(eng, ef)
+        phase("wave", ef=ef, recall_at_10=f"{rec[ef]:.4f}", oneshot_recall_at_10=f"{oneshot_recall[ef]:.4f}",
+              distcomps_per_query=f"{eng.num_distcomps / M_QUERIES:.1f}")
+    batched = dict(_kernels.launches)
+    check(batched.get("fused_search", 0) > 0 and batched.get("packed_score", 0) == 0,
+          f"the wave graph's 400-query calls did not take K1 alone: {batched}")
+    check(rec[120] >= 0.90, f"wave graph recall@10 at ef=120 {rec[120]} < 0.90")
+    nq = 2 * SMALL_CHUNK
+    single = np.concatenate([eng.query_k_batch(ds.queries[i : i + 1], K) for i in range(nq)])
+    chunked = np.concatenate([eng.query_k_batch(ds.queries[s : s + SMALL_CHUNK], K)
+                              for s in range(0, nq, SMALL_CHUNK)])
+    n_same = int((single == chunked).all(1).sum())
+    small = dict(_kernels.launches)
+    phase("wave", route="per_iteration", ef=120, queries=nq, rows_identical=f"{n_same}/{nq}",
+          recall_at_10=f"{recall(single, ds.ground_truth[:nq]):.4f}")
+    check(n_same == nq, f"wave graph: 32-query calls differ from one-query calls on {nq - n_same} rows")
+    check(small.get("packed_score", 0) > 0 and small.get("fused_search", 0) == batched["fused_search"],
+          f"the wave graph's small batches did not take K4 alone: {small}")
+    eng.cfg.use_compression = True  # bench.py's flip: s8 blocks on the built graph
+    eng._attach_codes()
+    _, rec_s8 = serve(eng, 120)
+    phase("wave", packed_dtype="i8", ef=120, recall_at_10=f"{rec_s8:.4f}",
+          distcomps_per_query=f"{eng.num_distcomps_compressed / M_QUERIES:.1f}")
+    check(rec_s8 >= 0.90, f"wave graph recall@10 on s8 blocks at ef=120 {rec_s8} < 0.90")
+    check(_kernels.launches.get("fused_search_s8", 0) > 0, f"K1-s8 never launched: {dict(_kernels.launches)}")
+    wave_graph = eng.graph
+    del eng
+
+    # (b) store -> build -> store -> build: one-shot, then waves
+    eng = engine()
+    eng.store_many_vectors(ds.vecs[: N // 2])
+    first_s = timed_build(eng)
+    eng.store_many_vectors(ds.vecs[N // 2 :])
+    second_s = timed_build(eng)
+    phase("wave", part="extend", first_rows=N // 2, first_build_seconds=f"{first_s:.2f}",
+          extend_seconds=f"{second_s:.2f}", **stage_seconds(eng.build_stats), n=eng.n)
+    check(eng.n == N and eng.graph.n == N, f"the extended index holds {eng.n} rows, not {N}")
+    phase("wave", part="extend", **adjacency_invariants(torch, eng.graph.adj_bottom[:N], N, M0))
+    ids, rec_ext = serve(eng, 120)
+    phase("wave", part="extend", ef=120, recall_at_10=f"{rec_ext:.4f}",
+          ids_from_first_half=int((ids < N // 2).sum()), ids_from_second_half=int((ids >= N // 2).sum()))
+    check(rec_ext >= 0.90, f"extended index recall@10 at ef=120 {rec_ext} < 0.90")
+    check(bool((ids < N // 2).any()) and bool((ids >= N // 2).any()), "the extended index answers from one half")
+    del eng
+
+    # (c) refinement of (a)'s graph
+    eng = engine()
+    t0 = time.perf_counter()
+    st = {}
+    refined = refine_index_wave(wave_graph, eng._build_config(), frac=0.5, stats=st)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    phase("wave", part="refine", frac=0.5, seconds=f"{refine_s:.2f}", **stage_seconds(st))
+    phase("wave", part="refine", **adjacency_invariants(torch, refined.adj_bottom[:N], N, M0))
+    eng.graph, eng.n, eng.dim = refined, N, D
+    _, rec_ref = serve(eng, 120)
+    phase("wave", part="refine", ef=120, recall_at_10=f"{rec_ref:.4f}", unrefined_recall_at_10=f"{rec[120]:.4f}")
+    check(rec_ref >= rec[120] - 0.01, f"refinement lost recall: {rec_ref} against {rec[120]}")
+    del eng, refined
+
+    # (d) the ortho passes in beam form, on the first WAVE_ORTHO_N rows
+    n4 = WAVE_ORTHO_N
+    bf = BruteForceEngine(mode="exact", device=dev)
+    bf.store_many_vectors(ds.vecs[:n4])
+    bf.build()
+    gt4 = bf.query_k_batch(ds.queries, K)
+    del bf
+    adjs = {}
+    for bias in (0.0, -1.0):
+        for oc in (1, 2):
+            eng = engine(builder="wave", ortho_count=oc, ortho_bias=bias)
+            eng.store_many_vectors(ds.vecs[:n4])
+            secs = timed_build(eng)
+            adjs[oc] = eng.graph.adj_bottom[:n4]
+            adjacency_invariants(torch, adjs[oc], n4, M0)
+            _, r = serve(eng, 120, gt4)
+            phase("wave", part="ortho", n=n4, ortho_count=oc, ortho_bias=bias, build_seconds=f"{secs:.2f}",
+                  iterations_mean=f"{np.mean(eng.build_stats['wave_iterations']):.1f}", ef=120,
+                  recall_at_10=f"{r:.4f}")
+            del eng
+        same = int((adjs[1] == adjs[2]).all(1).sum())
+        phase("wave", part="ortho", n=n4, ortho_bias=bias, rows_shared_by_counts_1_and_2=f"{same}/{n4}",
+              share=f"{same / n4:.4f}", card=card)
+    launches = dict(_kernels.launches)
+    phase("launches", path="wave", **launches)
+
+    # the path's kernels against their plain versions on (a)'s layouts
+    qg = torch.from_numpy(ds.queries).to(torch.bfloat16).to(dev).float()
+    err = {"fused_search_s8": hold_fused(torch, "wave_s8", wave_graph, qg, 120, cfg.query_expand,
+                                         cfg.fused_cand, cfg.entry_seeds, ds.ground_truth)}
+    g = dataclasses.replace(wave_graph, packed_codes=None, packed_code_norms=None, packed_center=None,
+                            packed_scale=None)
+    g.packed, g.packed_norms, g.packed_ids = build_packed(g.vectors, g.norms, g.adj_bottom)
+    err["fused_search"] = hold_fused(torch, "wave", g, qg, 120, cfg.query_expand, cfg.fused_cand, cfg.entry_seeds,
+                                     ds.ground_truth)
+    rng = np.random.default_rng(23)
+    sel = torch.from_numpy(rng.integers(0, N, (M_QUERIES, 2)).astype(np.int32)).to(dev)
+    sel[::5, 1] = N
+    q400 = torch.from_numpy(ds.queries).to(dev)
+    err["packed_score"] = max(hold_packed(torch, "wave", (g.packed, g.packed_norms, g.packed_ids), sel, q400, t)
+                              for t in (0, cfg.packed_topt))
+    del g, wave_graph
+    return dict(launches=launches, err=err)
+
+
 def main() -> None:
     import torch
 
@@ -1490,12 +1693,17 @@ def main() -> None:
     mres = million_phase(torch, dev, card)
     launches["million_build"], launches["million_serve"] = mres["build"], mres["serve"]
 
+    # ---- 23. the wave builders ------------------------------------------------
+    wres = wave_phase(torch, dev, ds, card, graph_recall)
+    wave = launches["wave"] = wres["launches"]
+
     rows = [
         ("fused_search", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:69",
-         launches["batched"]["fused_search"], max(fused_err, cli_err["fused_search"])),
+         launches["batched"]["fused_search"] + wave["fused_search"],
+         max(fused_err, cli_err["fused_search"], wres["err"]["fused_search"])),
         ("fused_search_s8", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:258",
-         quant["fused_search_s8"] + mres["serve"]["fused_search_s8"],
-         max(qres["fused_s8_err"], cli_err["fused_search_s8"], mres["s8_err"])),
+         quant["fused_search_s8"] + mres["serve"]["fused_search_s8"] + wave["fused_search_s8"],
+         max(qres["fused_s8_err"], cli_err["fused_search_s8"], mres["s8_err"], wres["err"]["fused_search_s8"])),
         ("flat_topk", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:147",
          launches["batched"]["flat_topk"] + mres["build"]["flat_topk"] + mres["serve"]["flat_topk"],
          max(flat_err["flat_topk"], mres["err"], mres["flat_err"])),
@@ -1506,7 +1714,7 @@ def main() -> None:
         ("flat_topk_fixed_s8", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:65",
          quant["flat_topk_fixed_s8"], flat_err["flat_fixed_s8"]),
         ("packed_score", "expann_tpu_torch/csrc/packed_score.cu", "expann_tpu/ops/pallas_beam.py:67",
-         launches["small_batch"]["packed_score"], ps_err),
+         launches["small_batch"]["packed_score"] + wave["packed_score"], max(ps_err, wres["err"]["packed_score"])),
         ("probe_fused", "expann_tpu_torch/csrc/probes.cu", "tools/probe_fused.py:26",
          launches["probes"]["probe_fused"], pres["err"]["probe_fused"]),
         ("block_gather", "expann_tpu_torch/csrc/probes.cu", "tools/perf_pallas_gather.py:34",

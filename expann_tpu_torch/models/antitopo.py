@@ -30,9 +30,12 @@ on ``set_ef_search``.
 
 ``build`` takes the one-shot builder up to 131072 rows (``BuildConfig.
 auto_wave_threshold``) and the one-device distributed builder above it, or
-with ``builder="dist"`` (models/build.build_index).  Not
-ported yet: the wave builders (``builder="wave"``, and a second ``build``
-after more vectors are stored); they raise ``NotImplementedError``.
+with ``builder="dist"``, or the wave builder with ``builder="wave"``
+(models/build.build_index; ``refine_frac > 0`` refines a wave or
+distributed build).  A second ``build`` after more vectors are stored
+extends the index by waves (models/wavebuild.extend_index_wave): store ->
+build -> store -> build accumulates, as the reference's live inserts do
+(src/antitopo_engine.h:310-330).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from expann_tpu_torch.models.base import Engine, ParamList, _concat_pending, for
 from expann_tpu_torch.models.build import BuildConfig, build_index
 from expann_tpu_torch.models.graph import GraphIndex
 from expann_tpu_torch.models.search import fused_query_batch, query_batch
+from expann_tpu_torch.models.wavebuild import extend_index_wave
 from expann_tpu_torch.ops.distance import pad_dim
 from expann_tpu_torch.ops.packed import build_packed, build_packed_i8, packed_bytes
 from expann_tpu_torch.ops.quantize import quantize_ranged, quantize_simple, ranged_scale_offset
@@ -92,8 +96,13 @@ class AntitopoConfig:
     prune_cand: int = 0  # candidate-list cap fed to the prune; 0 -> auto
     query_block: int = 1024
     query_expand: int = 1  # beam entries expanded per traversal iteration
-    builder: str = "auto"  # "oneshot" | "dist" | "auto"
-    wave_size: int = 1024  # distributed builder: rows per wave (4096 at least)
+    builder: str = "auto"  # "oneshot" | "dist" | "wave" | "auto"
+    # rows per wave: the wave builders (4096 from 4 x auto_wave_threshold
+    # rows when 1024), the distributed builder (4096 at least)
+    wave_size: int = 1024
+    wave_expand: int = 4  # wave builders: beam entries expanded per iteration
+    wave_overflow_rows: int = 128  # wave builders: fullest rows re-pruned per wave
+    refine_frac: float = 0.0  # > 0: refine that share of a wave or distributed build
     # codes of use_compression: "simple" (the reference's uint8 cast) or
     # "ranged" (min/max affine q8, src/quantizer.h:186-238)
     quant_mode: str = "simple"
@@ -173,6 +182,7 @@ class AntitopoEngine(Engine):
         self.num_distcomps = 0
         self.num_distcomps_compressed = 0
         self.total_query_time_ns = 0.0
+        self.build_stats: dict = {}
 
     # --- identity / params -------------------------------------------------
     def name(self) -> str:
@@ -211,6 +221,8 @@ class AntitopoEngine(Engine):
     # --- build -------------------------------------------------------------
     def build(self) -> None:
         c = self.cfg
+        # the wave and distributed builders' stage seconds and wave counts
+        self.build_stats = {}
         if c.index_filename and c.read_index:
             # read if the file exists, else build and write (reference
             # constructor, src/antitopo_engine.h:137-155)
@@ -223,17 +235,24 @@ class AntitopoEngine(Engine):
             self._pending = []
             self.n = self.graph.n
             self.dim = int(meta.get("dim", self.graph.vectors.shape[1]))
+        elif self.graph is not None and self._pending:
+            # store -> build -> store -> build accumulates: the new vectors
+            # go into the live graph by waves
+            new_x = _concat_pending(self._pending)
+            if new_x.shape[1] != self.dim:
+                raise ValueError(f"dimension mismatch on extend: the index has {self.dim}, the new vectors "
+                                 f"{new_x.shape[1]}")
+            self._pending = []
+            self.graph = extend_index_wave(self.graph, new_x, self._build_config(), wave_size=c.wave_size,
+                                           stats=self.build_stats)
+            self.n = self.graph.n
         else:
-            if self.graph is not None and self._pending:
-                raise NotImplementedError(
-                    "store -> build -> store -> build needs the wave builder, not ported yet: ROADMAP.md queue 1"
-                )
             if not self._pending:
                 raise RuntimeError("no vectors stored")
             x = _concat_pending(self._pending)
             self._pending = []
             self.n, self.dim = x.shape
-            self.graph = build_index(x, self._build_config(), self.device)
+            self.graph = build_index(x, self._build_config(), self.device, stats=self.build_stats)
             if c.write_index and c.index_filename:
                 save_index(c.index_filename, self.graph, {"dim": self.dim})
         if c.use_compression and self.graph.codes is None:
@@ -256,6 +275,9 @@ class AntitopoEngine(Engine):
             seed=c.seed,
             builder=c.builder,
             wave_size=c.wave_size,
+            wave_expand=c.wave_expand,
+            wave_overflow_rows=c.wave_overflow_rows,
+            refine_frac=c.refine_frac,
         )
 
     def _attach_codes(self) -> None:

@@ -28,8 +28,9 @@ the excess.
 
 ``build_index`` sends a corpus above ``auto_wave_threshold`` rows (or
 ``builder="dist"``) to the one-device distributed builder
-(parallel/distbuild.py), as the JAX package does; the wave builder
-(``builder="wave"``) is not ported yet and raises ``NotImplementedError``.
+(parallel/distbuild.py), as the JAX package does, and ``builder="wave"`` to
+the wave builder (models/wavebuild.py); either may be followed by the
+refinement pass (``refine_frac``).
 """
 
 from __future__ import annotations
@@ -187,6 +188,17 @@ def ortho_knn(
     return ids_out, s_out
 
 
+def best_union(ids: torch.Tensor, d: torch.Tensor, sentinel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's ids deduplicated, each id keeping its best score: a sort
+    by (id, d), repeats masked to (+inf, sentinel), a sort by (d, id).
+    Returns ``(ids, d)`` of the input's width."""
+    i_s, d_s = sort_rows(ids, d)
+    rep = torch.zeros_like(i_s, dtype=torch.bool)
+    rep[:, 1:] = i_s[:, 1:] == i_s[:, :-1]
+    d_u, i_u = sort_rows(torch.where(rep, INF, d_s), torch.where(rep, sentinel, i_s))
+    return i_u, d_u
+
+
 def ortho_union(
     ids0: torch.Tensor,
     d0: torch.Tensor,
@@ -196,7 +208,8 @@ def ortho_union(
     sentinel: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``ortho_count`` candidate passes and their union
-    (expann_tpu/models/build.py:521-563, parallel/distbuild.py:235-264).
+    (expann_tpu/models/build.py:521-563, parallel/distbuild.py:235-264,
+    models/wavebuild.py:180-214).
     Pass 0 is ``(ids0, d0)``, ordered by (d, id); pass i is
     ``penalized_pass(chosen, chosen_valid)`` against the first-place ids of
     passes 0..i-1 (a repeat of an earlier one is marked invalid).  The union
@@ -214,10 +227,7 @@ def ortho_union(
         all_ids.append(ids_i)
         all_d.append(d_i)
         chosen_cols.append(ids_i[:, 0])
-    i_s, d_s = sort_rows(torch.cat(all_ids, dim=1), torch.cat(all_d, dim=1))
-    rep = torch.zeros_like(i_s, dtype=torch.bool)
-    rep[:, 1:] = i_s[:, 1:] == i_s[:, :-1]
-    d_u, i_u = sort_rows(torch.where(rep, INF, d_s), torch.where(rep, sentinel, i_s))
+    i_u, d_u = best_union(torch.cat(all_ids, dim=1), torch.cat(all_d, dim=1), sentinel)
     return i_u[:, :C], d_u[:, :C]
 
 
@@ -366,11 +376,19 @@ class BuildConfig:
     row_block: int = 2048
     col_block: int = 8192
     prune_block: int = 2048
-    # "oneshot", "dist" (parallel/distbuild.py) or "auto": the distributed
-    # builder above auto_wave_threshold rows ("wave" is not ported)
+    # "oneshot", "dist" (parallel/distbuild.py), "wave" (models/wavebuild.py)
+    # or "auto": the distributed builder above auto_wave_threshold rows
     builder: str = "auto"
     wave_size: int = 1024
     auto_wave_threshold: int = 131072
+    # the wave builder's beam entries expanded per iteration, and how many of
+    # the fullest rows get the deferred lazy prune each wave
+    wave_expand: int = 4
+    wave_overflow_rows: int = 128
+    # > 0: after a wave or distributed build, re-insert the first
+    # refine_frac of the corpus against the finished graph
+    # (models/wavebuild.refine_index_wave)
+    refine_frac: float = 0.0
 
     def __post_init__(self):
         if self.M0 == 0:
@@ -441,28 +459,51 @@ def build_upper_layers(
     return tuple(upper)
 
 
-def build_index(x: np.ndarray, cfg: Optional[BuildConfig], device, verbose: bool = False) -> GraphIndex:
-    """Build a GraphIndex over the host corpus ``x`` ``(N, D)`` on ``device``:
-    the one-shot builder, or above ``cfg.auto_wave_threshold`` rows (or with
-    ``builder="dist"``) the one-device distributed builder
-    (expann_tpu/models/build.py:659-696).  ``verbose`` prints the
-    distributed builder's progress and stage seconds."""
+def wave_size_for(cfg: BuildConfig, n: int) -> int:
+    """The wave builders' wave size (expann_tpu/models/build.py:670-676):
+    ``cfg.wave_size``, or 4096 where it is the default 1024 and the corpus
+    has at least 4 x ``auto_wave_threshold`` rows (per-wave costs are paid
+    ~1000 times at 1M rows and 1024)."""
+    if cfg.wave_size == 1024 and n >= 4 * cfg.auto_wave_threshold:
+        return 4096
+    return cfg.wave_size
+
+
+def build_index(x: np.ndarray, cfg: Optional[BuildConfig], device, verbose: bool = False,
+                stats: Optional[dict] = None) -> GraphIndex:
+    """Build a GraphIndex over the host corpus ``x`` ``(N, D)`` on ``device``
+    (expann_tpu/models/build.py:659-703): the one-shot builder; the wave
+    builder with ``builder="wave"``; or above ``cfg.auto_wave_threshold``
+    rows (or with ``builder="dist"``) the one-device distributed builder.
+    After a wave or distributed build, ``refine_frac > 0`` runs the
+    refinement pass.  ``verbose`` prints the wave and distributed builders'
+    progress and stage seconds; ``stats``, when given, receives theirs."""
     cfg = cfg or BuildConfig()
     x = np.asarray(x, dtype=np.float32)
     n = x.shape[0]
     if n == 0:
         raise ValueError("no vectors to build from")
-    if cfg.builder == "wave":
-        raise NotImplementedError("builder='wave' (models/wavebuild.py) is not ported yet: ROADMAP.md queue 1")
-    if cfg.builder not in ("auto", "oneshot", "dist"):
-        raise ValueError(f"builder={cfg.builder!r}: one of 'auto', 'oneshot', 'dist'")
-    if cfg.builder == "dist" or (cfg.builder == "auto" and n > cfg.auto_wave_threshold):
-        from expann_tpu_torch.parallel.distbuild import build_distributed
+    if cfg.builder not in ("auto", "oneshot", "dist", "wave"):
+        raise ValueError(f"builder={cfg.builder!r}: one of 'auto', 'oneshot', 'dist', 'wave'")
+    if cfg.builder in ("wave", "dist") or (cfg.builder == "auto" and n > cfg.auto_wave_threshold):
+        ws = wave_size_for(cfg, n)
+        if cfg.builder == "wave":
+            from expann_tpu_torch.models.wavebuild import build_index_wave
 
-        # waves of 4096 at least: a million-row corpus pays per-wave costs
-        # ~245 times against ~1000 at 1024
-        graph, _ = build_distributed(x, cfg, device, wave_size=max(cfg.wave_size, 4096), mode="oneshot",
-                                     candidates="auto", verbose=verbose)
+            graph = build_index_wave(x, cfg, device, wave_size=ws, verbose=verbose, stats=stats)
+        else:
+            from expann_tpu_torch.parallel.distbuild import build_distributed
+
+            # waves of 4096 at least: a million-row corpus pays per-wave costs
+            # ~245 times against ~1000 at 1024
+            graph, dstats = build_distributed(x, cfg, device, wave_size=max(ws, 4096), mode="oneshot",
+                                              candidates="auto", verbose=verbose)
+            if stats is not None:
+                stats.update(dstats)
+        if cfg.refine_frac > 0.0:
+            from expann_tpu_torch.models.wavebuild import refine_index_wave
+
+            graph = refine_index_wave(graph, cfg, frac=cfg.refine_frac, wave_size=ws, verbose=verbose)
         return graph
     device = torch.device(device)
     vectors, norms = make_corpus(x, device)

@@ -16,12 +16,14 @@ layers (the reference's ``_query_k`` flow, src/antitopo_engine.h:853-928):
     ``use_packed``), and merge by a stable sort.  The packed route reranks
     the final beam in exact f32; the gather route scores in exact f32
     already, or, with ``compressed``, gathers the uint8 codes and reranks.
-    One host sync per iteration (``done.all()``).
+    One host sync per iteration (``done.all()``).  ``beam_search`` is also
+    the wave builders' construction search (models/wavebuild.py), with the
+    ortho-penalized score for their extra passes.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -38,6 +40,26 @@ def _gather_dist2(data, data_norms, ids, q, qn):
     +inf norm and come out at +inf."""
     ids = ids.long()
     return batched_neighbour_dist2(q, data[ids], data_norms[ids], q_norms=qn)
+
+
+def _gather_score_ortho(data, data_norms, ids, q, qn, chosen_v, chosen_n, chosen_valid, ortho_factor, ortho_bias):
+    """Ortho-penalized scores of rows ``ids`` (B, K) against q (the
+    construction-time ``use_ortho`` branch, src/antitopo_engine.h:342-351):
+
+        score(c) = d2(q, c) + sum over valid chosen p of
+                   [d2(p, c) < d2(q, c)] * (ortho_factor * (d2(q, c) - d2(p, c)) + ortho_bias)
+
+    ``chosen_v`` / ``chosen_n`` (B, OC, D) / (B, OC) are the chosen points'
+    rows and norms, ``chosen_valid`` (B, OC) masks repeats.  A candidate at
+    +inf (the sentinel row) stays +inf."""
+    ids = ids.long()
+    nvecs, nnorms = data[ids].float(), data_norms[ids]
+    d2 = batched_neighbour_dist2(q, nvecs, nnorms, q_norms=qn)
+    co = chosen_n[:, :, None] + nnorms[:, None, :] - 2.0 * torch.einsum("bod,bkd->bok", chosen_v, nvecs)
+    d2b = d2[:, None, :]
+    hit = (co < d2b) & chosen_valid[:, :, None] & torch.isfinite(d2b)
+    pen = torch.where(hit, ortho_factor * (d2b - co) + ortho_bias, 0.0)
+    return d2 + pen.sum(dim=1)
 
 
 def greedy_descent(
@@ -135,10 +157,14 @@ def rerank(graph: GraphIndex, q: torch.Tensor, beam_ids: torch.Tensor, k: int):
 
 
 def _earlier_dup(ids: torch.Tensor) -> torch.Tensor:
-    """``(B, K)`` bool: the id already occurs earlier in its row."""
-    K = ids.shape[1]
-    earlier = torch.ones((K, K), dtype=torch.bool, device=ids.device).tril(-1)
-    return ((ids[:, :, None] == ids[:, None, :]) & earlier).any(-1)
+    """``(B, K)`` bool: the id already occurs earlier in its row.  A stable
+    sort by id keeps equal ids in position order, so an entry is a repeat
+    iff its predecessor in sorted order has its id: the same mask as
+    comparing all pairs, in O(K log K) rather than O(K^2) memory."""
+    s, order = torch.sort(ids, dim=1, stable=True)
+    rep = torch.zeros_like(s, dtype=torch.bool)
+    rep[:, 1:] = s[:, 1:] == s[:, :-1]
+    return torch.zeros_like(rep).scatter_(1, order, rep)
 
 
 def beam_search(
@@ -156,6 +182,11 @@ def beam_search(
     packed_norms: Optional[torch.Tensor] = None,
     packed_ids: Optional[torch.Tensor] = None,
     packed_topt: int = 0,
+    ortho_chosen: Optional[torch.Tensor] = None,
+    ortho_valid: Optional[torch.Tensor] = None,
+    ortho_factor: float = 0.5,
+    ortho_bias: float = 0.0,
+    iters: Optional[List[int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched best-first beam search on the bottom layer, one iteration
     per loop step (search.py ``beam_search`` of the JAX package).
@@ -165,27 +196,47 @@ def beam_search(
     ``ep_ids`` ``(B, E0)`` entry points.  With ``packed`` (and its norms and
     ids) each iteration scores the selected nodes' packed blocks through
     ``packed_score`` (top-``packed_topt`` per node when > 0); otherwise it
-    gathers the neighbours' rows and scores them in f32.
+    gathers the neighbours' rows and scores them in f32.  With
+    ``ortho_chosen`` (B, OC) previously chosen ids (clamped to the sentinel)
+    and ``ortho_valid`` (B, OC), entry points and neighbours alike are
+    scored by ``_gather_score_ortho`` (the wave builder's penalized passes;
+    not with ``packed``).
 
     Per iteration and query: select the ``E = min(expand, ef)`` best
     unexpanded entries by (d, position); the query is done once the best
     one is worse than the beam's last entry or not finite (the reference's
     break rule, src/antitopo_engine.h:588-590); score the selected nodes'
     neighbours; mask those whose id is anywhere in the beam (sentinel
-    included) and, when ``E > 1`` or the block width differs from R, those
-    repeated earlier in the block; merge by a stable sort on d and keep
+    included) or repeated earlier in the block (the JAX package skips the
+    second test for one full adjacency row, which holds no id twice, so the
+    masks agree); merge by a stable sort on d and keep
     ``ef``.  A done query is inert.  The loop runs while a query is not done
     and fewer than ``max_iters`` iterations have run.
 
     Returns ``(beam_ids, beam_d, ncomp)``: beams ``(B, ef)`` ascending,
     sentinel / +inf padded, and per-query distance computations ``(B,)``:
     ``E0``, plus RS per selected non-sentinel node (packed) or the count of
-    non-sentinel neighbours (gather)."""
+    non-sentinel neighbours (gather).  ``iters``, when given, receives the
+    iterations the loop ran."""
     B, E0 = ep_ids.shape
     dev = q.device
     R = packed.shape[1] if packed is not None else adj.shape[1]
     ep_ids = ep_ids.to(torch.int32)
-    ep_d = _gather_dist2(data, data_norms, ep_ids, q, qn)
+    if ortho_chosen is not None:
+        if packed is not None:
+            raise ValueError("ortho scoring gathers rows: it takes no packed layout")
+        safe = torch.clamp_max(ortho_chosen.long(), sentinel)
+        chosen_v, chosen_n = data[safe].float(), data_norms[safe]
+
+        def score(ids):
+            return _gather_score_ortho(data, data_norms, ids, q, qn, chosen_v, chosen_n, ortho_valid,
+                                       ortho_factor, ortho_bias)
+    else:
+
+        def score(ids):
+            return _gather_dist2(data, data_norms, ids, q, qn)
+
+    ep_d = score(ep_ids)
     if E0 > 1:  # duplicate seeds would defeat the beam's dedup
         ep_d = torch.where(_earlier_dup(ep_ids), INF, ep_d)
     pad = max(ef - E0, 0)
@@ -214,12 +265,13 @@ def beam_search(
             ncomp += R * (sel != sentinel).sum(1, dtype=torch.int32)
         else:
             nbrs = adj[sel.long()].reshape(B, E * R)
-            nd = _gather_dist2(data, data_norms, nbrs, q, qn)
+            nd = score(nbrs)
             ncomp += (nbrs != sentinel).sum(1, dtype=torch.int32)
-        K = nbrs.shape[1]
-        dup = (nbrs[:, :, None] == beam_ids[:, None, :]).any(-1)
-        if E > 1 or K != R:
-            dup |= _earlier_dup(nbrs)
+        # mask a neighbour whose id is in the beam (sentinel included) or
+        # earlier in the block: with the beam ahead of the block, an id
+        # repeated earlier in the row (the beam's own sentinel repeats are
+        # dropped by the slice)
+        dup = _earlier_dup(torch.cat([beam_ids, nbrs], 1))[:, ef:]
         nd = torch.where(dup, INF, nd)
 
         all_d, order = torch.sort(torch.cat([beam_d, nd], 1), dim=1, stable=True)
@@ -228,6 +280,8 @@ def beam_search(
         beam_ids = torch.cat([beam_ids, nbrs], 1).gather(1, order)
         beam_exp = torch.cat([beam_exp, torch.zeros_like(dup)], 1).gather(1, order)
         it += 1
+    if iters is not None:
+        iters.append(it)
     return beam_ids, beam_d, ncomp
 
 

@@ -4,9 +4,14 @@ tools/bench_1m.py).
 Builds a 1M x 128 index with the one-device distributed one-shot builder
 (parallel/distbuild.py: waves of 4096, candidates by segmented flat scans
 through the flat top-k kernel K2, or with ``--ortho-count`` > 1 dense
-penalized scans in column blocks), then measures:
+penalized scans in column blocks) or, with ``--builder wave``, the wave
+builder (models/wavebuild.py: beam-search candidates, waves of 1024, or
+4096 from 524288 rows); ``--refine-frac`` > 0 then re-inserts that share of
+the corpus (``refine_index_wave``).  It measures:
 
-  * the build: seconds per stage, peak device memory, K2 launches;
+  * the build: seconds per stage, peak device memory, K2 launches, and for
+    the wave builder its waves and beam iterations per wave; the
+    refinement's seconds;
   * graph points (the fused traversal, entry seeds 8, f32 rerank):
     recall@10 against the exact oracle and host-clock QPS on 32768 fresh
     N(0,1) queries (best of 3), on s8 blocks at (expand, ef, cand) of the
@@ -21,7 +26,8 @@ seed=0)``, the hardened mixture), ``gaussian`` (N(0,1), seed 0) or
 ``sift_groundtruth.ivecs``, the reference's SIFT1M layout,
 src/main.cpp:72-80).  Ground truth: ``BruteForceEngine(mode="exact")`` on
 the card.  The index and the ground truth are cached under
-``build/bench_1m/`` of the checkout (``--skip-build`` reuses the index).
+``build/bench_1m/`` of the checkout, or ``--cache`` (``--skip-build``
+reuses the index; its file name carries the builder and the refinement).
 Prints one JSON line per point, each with the card's name and power
 limit, and a summary line last:
 
@@ -42,9 +48,10 @@ import torch
 from expann_tpu_torch.data.loader import generate_synthetic, generate_synthetic_clustered, load_sift1m
 from expann_tpu_torch.models.antitopo import PACKED_BUDGET_BYTES, AntitopoConfig, AntitopoEngine
 from expann_tpu_torch.models.brute_force import BruteForceEngine
-from expann_tpu_torch.models.build import BuildConfig
+from expann_tpu_torch.models.build import BuildConfig, wave_size_for
 from expann_tpu_torch.ops import _kernels
 from expann_tpu_torch.ops.packed import packed_bytes
+from expann_tpu_torch.models.wavebuild import build_index_wave, refine_index_wave
 from expann_tpu_torch.parallel.distbuild import build_distributed
 from expann_tpu_torch.utils.persist import load_index, save_index
 from expann_tpu_torch.utils.profiling import card_name
@@ -135,6 +142,10 @@ def main(argv=None) -> list:
     ap.add_argument("--M", type=int, default=32)
     ap.add_argument("--efc", type=int, default=127, help="ef_construction = prune_cand = C")
     ap.add_argument("--ortho-count", type=int, default=1, help="candidate passes; > 1 scans dense")
+    ap.add_argument("--builder", default="auto", choices=("auto", "wave"),
+                    help="auto: the distributed builder; wave: the wave builder")
+    ap.add_argument("--refine-frac", type=float, default=0.0, help="> 0: refine this share of the corpus")
+    ap.add_argument("--cache", default=str(CACHE), help="directory of the cached index and ground truth")
     ap.add_argument("--data", default="gaussian", help="gaussian, clustered or fvecs:<dir>")
     ap.add_argument("--wire", default="bf16", choices=("bf16", "i8"), help="graph query wire; fused_i8's too")
     ap.add_argument("--qb", type=int, default=8192, help="serving query_block")
@@ -155,10 +166,13 @@ def main(argv=None) -> list:
         print(f"kernels built: {time.perf_counter() - t0:.1f}s", flush=True)
     ntag = "" if args.n == 1_000_000 else f"_n{args.n}"
     otag = "" if args.ortho_count == 1 else f"_oc{args.ortho_count}"
+    btag = "" if args.builder == "auto" else f"_{args.builder}"
+    rtag = "" if args.refine_frac <= 0 else f"_rf{args.refine_frac:g}"
     dtag = "fvecs_" + os.path.basename(args.data[6:].rstrip("/")) if args.data.startswith("fvecs:") else args.data
-    CACHE.mkdir(parents=True, exist_ok=True)
-    idx_path = CACHE / f"idx_M{args.M}_efc{args.efc}_{dtag}{ntag}{otag}.npz"
-    gt_path = CACHE / f"gt_{dtag}{ntag}_m{args.m}_k{args.k}.npz"
+    cache = Path(args.cache)
+    cache.mkdir(parents=True, exist_ok=True)
+    idx_path = cache / f"idx_M{args.M}_efc{args.efc}_{dtag}{ntag}{otag}{btag}{rtag}.npz"
+    gt_path = cache / f"gt_{dtag}{ntag}_m{args.m}_k{args.k}.npz"
     results = []
 
     def emit(pt: dict) -> None:
@@ -190,18 +204,36 @@ def main(argv=None) -> list:
         _kernels.launches.clear()
         if on_card:
             torch.cuda.reset_peak_memory_stats()
+        ws = wave_size_for(cfg, n)
         t0 = time.perf_counter()
-        graph, stats = build_distributed(x, cfg, device, wave_size=4096, mode="oneshot", candidates="flat",
-                                         verbose=True)
+        if args.builder == "wave":
+            stats = {}
+            graph = build_index_wave(x, cfg, device, wave_size=ws, verbose=True, stats=stats)
+            iters = stats.pop("wave_iterations")
+            stats.update(wave_size=ws, iterations_mean=round(float(np.mean(iters)), 1) if iters else 0,
+                         iterations_max=max(iters, default=0))
+        else:
+            graph, stats = build_distributed(x, cfg, device, wave_size=4096, mode="oneshot", candidates="flat",
+                                             verbose=True)
         build_s = time.perf_counter() - t0
         adj = graph.adj_bottom[:n]
         deg = (adj < n).sum(1)
-        emit({"point": "build", "build_s": round(build_s, 2), "n": n, "M": args.M, "efc": args.efc,
-              "ortho_count": args.ortho_count,
+        emit({"point": "build", "builder": args.builder, "build_s": round(build_s, 2), "n": n, "M": args.M,
+              "efc": args.efc, "ortho_count": args.ortho_count,
               "seconds": {k: round(v, 2) for k, v in stats.pop("seconds").items()}, **stats,
-              "flat_topk_launches": _kernels.launches["flat_topk"], "layers": len(graph.layers),
+              "flat_topk_launches": _kernels.launches.get("flat_topk", 0), "layers": len(graph.layers),
               "degree_mean": round(float(deg.float().mean()), 2), "degree_min": int(deg.min()),
               "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2) if on_card else None})
+        if args.refine_frac > 0:
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            stats = {}
+            t0 = time.perf_counter()
+            graph = refine_index_wave(graph, cfg, frac=args.refine_frac, wave_size=ws, verbose=True, stats=stats)
+            emit({"point": "refine", "refine_s": round(time.perf_counter() - t0, 2), "frac": args.refine_frac,
+                  "wave_size": ws, "waves": stats["waves"], "swept_rows": stats["swept_rows"],
+                  "seconds": {k: round(v, 2) for k, v in stats["seconds"].items()},
+                  "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2) if on_card else None})
         save_index(str(idx_path), graph, {"dim": d})
     if args.build_only:
         print(f"build-only: index at {idx_path}", flush=True)

@@ -161,10 +161,46 @@ def test_graph_invariants(graphs):
     assert set(graph_to_numpy(tg)) >= {"vectors", "norms", "adj_bottom", "starting_vertex"}
 
 
-def test_unported_builders_raise(data):
+def test_build_index_routes_wave_and_refinement(data, monkeypatch):
+    """``build_index`` sends builder="wave" to ``build_index_wave`` with the
+    JAX wave-size rule (cfg.wave_size; 4096 where it is 1024 and the corpus
+    has 4 x auto_wave_threshold rows or more), and with refine_frac > 0 runs
+    ``refine_index_wave`` at that wave size after a wave or distributed
+    build, never after a one-shot build (expann_tpu/models/build.py:659-703).
+    The builders are spies here; the wave tests build for real."""
+    from expann_tpu_torch.models import wavebuild
+    from expann_tpu_torch.parallel import distbuild
+
     x, _ = data
-    with pytest.raises(NotImplementedError):
-        tbuild.build_index(x, tbuild.BuildConfig(M=M, builder="wave"), "cpu")
+    calls = []
+
+    def spy(name, result):
+        def fn(*args, **kwargs):
+            calls.append((name, kwargs.get("wave_size"), kwargs.get("frac")))
+            return result
+        return fn
+
+    monkeypatch.setattr(wavebuild, "build_index_wave", spy("wave", "wave graph"))
+    monkeypatch.setattr(wavebuild, "refine_index_wave", spy("refine", "refined graph"))
+    monkeypatch.setattr(distbuild, "build_distributed", spy("dist", ("dist graph", {})))
+    for over, want, graph in (
+        (dict(builder="wave"), [("wave", 1024, None)], "wave graph"),
+        (dict(builder="wave", wave_size=512, auto_wave_threshold=100), [("wave", 512, None)], "wave graph"),
+        (dict(builder="wave", auto_wave_threshold=200), [("wave", 4096, None)], "wave graph"),
+        (dict(builder="wave", auto_wave_threshold=201), [("wave", 1024, None)], "wave graph"),
+        (dict(builder="wave", refine_frac=0.5), [("wave", 1024, None), ("refine", 1024, 0.5)], "refined graph"),
+        (dict(builder="dist", refine_frac=0.25), [("dist", 4096, None), ("refine", 1024, 0.25)], "refined graph"),
+        (dict(auto_wave_threshold=100, refine_frac=0.5), [("dist", 4096, None), ("refine", 4096, 0.5)],
+         "refined graph"),
+    ):
+        calls.clear()
+        assert tbuild.build_index(x, tbuild.BuildConfig(M=M, **over), "cpu") == graph, over
+        assert calls == want, over
+    calls.clear()
+    g = tbuild.build_index(x, tbuild.BuildConfig(M=M, ef_construction=EFC, refine_frac=0.5), "cpu")
+    assert not calls and isinstance(g, GraphIndex)
+    with pytest.raises(ValueError):
+        tbuild.build_index(x, tbuild.BuildConfig(M=M, builder="waves"), "cpu")
 
 
 @pytest.mark.parametrize("OC", [1, 2, 3])
