@@ -138,7 +138,25 @@ Phases, one line each:
                    no more than 0.01 below); wave builds of the first 16384
                    rows at ortho_count 1 and 2, ortho_bias 0 and -1 (the
                    rows the counts share, recall); then K1, K4 and K1-s8 on
-                   the wave graph's layouts held to their plain versions.
+                   the wave graph's layouts held to their plain versions;
+ 24. sharded       the multi-device layer (expann_tpu_torch/parallel/) on
+                   SHARDS shards over the visible cards, round-robin (one
+                   card: all of them on it), counts reset just before each
+                   step: tools/dryrun_multichip; build_sharded of the
+                   canonical corpus; sharded_packed_query at ef 100 / 120
+                   (exactly S K1 launches a call, recall@10 >= 0.95 at
+                   ef=120 beside phase 4's, shard 0's K1 call held to its
+                   plain version, QPS); sharded_flat_query (exactly S K2
+                   launches, ids equal to one K2 call over the whole corpus
+                   but on ties, QPS); replicated_fused_query_dp on phase 4's
+                   graph (ids identical to one fused_query_batch call, QPS
+                   beside it); sharded_build_step on a wave of 4096 rows
+                   against the one-shard call (>= 99% of rows identical);
+                   build_distributed over the shards, dense on the canonical
+                   corpus against one device (>= 95% of rows identical,
+                   recall within 0.01), then flat on 262144 clustered rows
+                   (exactly waves x S x segments K2 launches, s8 recall@10
+                   at ef=80 >= 0.98).
 Then the script's run time, the kernel summary as JSON, the card's name
 and power limit as nvidia-smi prints them, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -183,6 +201,9 @@ WIRE_EFS = (110, 120)  # bench.py:329 (i8 query wire)
 FLAT_S8_KS = (30, 100)  # 30: fused_i8's scan at k=10 (rerank_mult=3)
 MILLION_N = 1_000_000  # phase 22's corpus (tools/bench_1m.py --data clustered)
 WAVE_ORTHO_N = 16384  # phase 23 (d): rows of the ortho-pass builds
+SHARDS = 4  # phase 24: shards over the visible cards, round-robin
+SHARD_WAVE = 4096  # phase 24 (f): the sharded build step's wave
+SHARD_FLAT_N = 262144  # phase 24 (g): rows of the distributed flat build
 
 
 def graph_cfg():
@@ -358,14 +379,16 @@ def hold_packed(torch, label: str, args, sel, q, t: int, exact: bool = False, mi
     return err
 
 
-def hold_fused(torch, label: str, g, q, ef: int, expand: int, cand: int, seeds: int, gt: np.ndarray) -> float:
+def hold_fused(torch, label: str, g, q, ef: int, expand: int, cand: int, seeds: int, gt: np.ndarray,
+               min_identical: float = 0.0) -> float:
     """K1 (bf16 blocks of ``g``) or K1-s8 (s8 blocks) against its plain
     version on the arguments the engine gives it for the f32 queries ``q``
     at ``ef``: EF=128, the same seeded beams, 8 ef + 16 iterations.  The
     top-10 after the f32 rerank overlaps >= 0.99, recall within 0.005,
     distance computations within 1%, and the beam distances where both
     hold the same id within D_ATOL / D_RTOL on bf16 blocks, identical on
-    s8 (exact integer sums).  Returns the largest of those differences."""
+    s8 (exact integer sums); with ``min_identical``, at least that share of
+    the beams identical.  Returns the largest of those differences."""
     from expann_tpu_torch.models.search import entry_beam, kernel_query, rerank
     from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain, topt_for
 
@@ -389,6 +412,8 @@ def hold_fused(torch, label: str, g, q, ef: int, expand: int, cand: int, seeds: 
     check(overlap >= 0.99, f"{label}: {name}: top-10 overlap with the plain version {overlap} < 0.99")
     check(abs(r_diff) <= 0.005, f"{label}: {name}: recall differs from the plain version by {r_diff}")
     check(abs(nk - npl) <= 0.01 * npl, f"{label}: {name}: distcomps {nk} vs plain {npl}")
+    n_ident = int((ki == pi_).all(1).sum())
+    check(n_ident >= min_identical * q.shape[0], f"{label}: {name}: {n_ident}/{q.shape[0]} beams identical")
     if g.packed_codes is not None:
         check(bool(torch.equal(kd[same], pd_[same])), f"{label}: {name}: beam distances differ by {err}")
     else:
@@ -1361,6 +1386,257 @@ def wave_phase(torch, dev, ds, card: str, oneshot_recall: dict) -> dict:
     return dict(launches=launches, err=err)
 
 
+def sharded_phase(torch, dev, ds, card: str, g, graph_recall: dict) -> dict:
+    """Phase 24: the multi-device layer on a mesh of SHARDS devices, the
+    visible cards round-robin (one card: SHARDS shards on it), counts reset
+    just before each step and read just after.  (a) tools/dryrun_multichip.
+    (b) build_sharded of the canonical corpus at bench.py's build config:
+    seconds, peak, levels a shard, no kernel.  (c) pack_sharded and
+    sharded_packed_query at ef 100 / 120 on the 400 queries: recall@10
+    beside phase 4's, >= 0.95 at ef=120, ids unique and below n, exactly S
+    K1 launches a call; shard 0's K1 call held to its plain version (>= 99%
+    of beams identical); QPS on 65536 fresh queries, median of 3.  (d)
+    sharded_flat_query on 16384 queries: exactly S K2 launches, ids equal
+    to K2 over the whole bf16 corpus except on ties (all counted, all
+    ties), recall on the 400 queries >= 0.99; shard 0's K2 call held to its
+    plain version; the S shard calls' time beside one call's; QPS.  (e) replicated_fused_query_dp on phase 4's graph,
+    65536 queries at ef=120: exactly S K1 launches, ids identical to one
+    fused_query_batch call; QPS beside that call's.  (f) sharded_build_step
+    on the first SHARD_WAVE canonical rows at C = prune_cand, cap = M0:
+    top-C lists and pruned rows against the one-shard call, >= 99% of rows
+    identical.  (g) build_distributed on the mesh: the canonical corpus
+    with dense candidates against the one-device build (>= 95% of rows
+    identical, recall@10 at ef=120 within 0.01), then SHARD_FLAT_N rows of
+    the clustered data with flat candidates, M=48, efc = prune_cand = 300:
+    exactly waves x S x n_seg K2 launches and nothing else, seconds, peak,
+    s8 recall@10 at ef=80 >= 0.98.  Returns the launch counts and the held
+    errors."""
+    import dataclasses
+
+    from expann_tpu_torch import AntitopoEngine, BruteForceEngine
+    from expann_tpu_torch.data.loader import generate_synthetic_clustered
+    from expann_tpu_torch.models.build import BuildConfig
+    from expann_tpu_torch.models.graph import make_corpus
+    from expann_tpu_torch.models.search import fused_query_batch
+    from expann_tpu_torch.ops import _kernels
+    from expann_tpu_torch.ops.packed import build_packed
+    from expann_tpu_torch.ops.topk import flat_topk, flat_topk_cuda
+    from expann_tpu_torch.parallel.distbuild import build_distributed, flat_segments
+    from expann_tpu_torch.parallel.sharded import (
+        build_sharded,
+        build_sharded_flat,
+        pack_sharded,
+        replicated_fused_query_dp,
+        sharded_build_step,
+        sharded_candidates,
+        sharded_flat_query,
+        sharded_packed_query,
+    )
+    from expann_tpu_torch.tools.bench_1m import graph_engine, graph_point
+    from expann_tpu_torch.tools.dryrun_multichip import dryrun_multichip, round_robin
+    from expann_tpu_torch.utils.profiling import event_ms
+
+    cfg = graph_cfg()
+    mesh = round_robin(SHARDS)
+    S = len(mesh)
+    rng = np.random.default_rng(24)
+    launches, err = {}, {}
+    phase("sharded", shards=S, devices=",".join(str(d) for d in mesh), card=card)
+
+    def counted(fn):
+        _kernels.launches.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(_kernels.launches)
+
+    def median_qps(fn, B: int) -> tuple:
+        runs = []
+        for _ in range(3):
+            batch = rng.standard_normal((B, D)).astype(np.float32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(batch)  # returns host arrays: the device work is done
+            runs.append(B / (time.perf_counter() - t0))
+        return float(np.median(runs)), runs
+
+    # (a) the dryrun at its tiny sizes
+    t0 = time.perf_counter()
+    out, launches["dryrun"] = counted(lambda: dryrun_multichip(mesh))
+    phase("sharded", part="dryrun", seconds=f"{time.perf_counter() - t0:.2f}", **out)
+    phase("launches", path="sharded_dryrun", **launches["dryrun"])
+
+    # (b) the sharded index at bench.py's build config
+    bcfg = AntitopoEngine(config=cfg, device=dev)._build_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    idx, build_l = counted(lambda: build_sharded(ds.vecs, bcfg, mesh))
+    phase("sharded", part="build_sharded", n=N, n_shard=idx.n_shard, seconds=f"{time.perf_counter() - t0:.2f}",
+          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+          levels=",".join(str(len(sh.layers)) for sh in idx.shards), card=card)
+    check(build_l == {}, f"build_sharded launched a kernel: {build_l}")
+
+    # (c) the per-shard fused traversal, K1 once a shard a call
+    pidx = pack_sharded(idx)
+    del idx
+    rec = {}
+    for ef in (100, 120):
+        ids, launches[f"packed_ef{ef}"] = counted(lambda: sharded_packed_query(
+            pidx, ds.queries, K, ef, expand=cfg.query_expand, cand=cfg.fused_cand))
+        check(ids.shape == (M_QUERIES, K) and rows_unique(ids) and bool(((ids >= 0) & (ids < N)).all()),
+              f"sharded_packed_query at ef={ef}: shape, duplicates or ids outside [0, n)")
+        check(launches[f"packed_ef{ef}"] == {"fused_search": S},
+              f"sharded_packed_query launched {launches[f'packed_ef{ef}']}, not {S} K1 calls")
+        rec[ef] = recall(ids, ds.ground_truth)
+        phase("sharded", part="packed", ef=ef, expand=cfg.query_expand, cand=cfg.fused_cand,
+              recall_at_10=f"{rec[ef]:.4f}", single_graph_recall_at_10=f"{graph_recall[ef]:.4f}",
+              k1_launches=launches[f"packed_ef{ef}"]["fused_search"])
+    check(rec[120] >= 0.95, f"sharded recall@10 at ef=120 {rec[120]} < 0.95")
+    qg = torch.from_numpy(ds.queries).to(dev)
+    err["fused_search"] = hold_fused(torch, "sharded_shard0", pidx.shards[0], qg, 120, cfg.query_expand,
+                                     cfg.fused_cand, 0, ds.ground_truth, min_identical=0.99)
+    qps, runs = median_qps(lambda b: sharded_packed_query(pidx, b, K, 120, expand=cfg.query_expand,
+                                                          cand=cfg.fused_cand), QPS_QUERIES)
+    phase("sharded", part="packed", ef=120, queries=QPS_QUERIES, qps_median=f"{qps:.0f}",
+          qps=",".join(f"{v:.0f}" for v in runs), card=card)
+    shard_corpus = [(sh.vectors, sh.norms) for sh in pidx.shards]  # (f)'s corpus
+    del pidx
+
+    # (d) the per-shard flat scan, K2 once a shard a call
+    flat = build_sharded_flat(ds.vecs, mesh)
+    qf = rng.standard_normal((FLAT_CHUNK, D)).astype(np.float32)
+    ids, launches["flat"] = counted(lambda: sharded_flat_query(flat, qf, K))
+    check(launches["flat"] == {"flat_topk": S}, f"sharded_flat_query launched {launches['flat']}, not {S} K2 calls")
+    xall = torch.from_numpy(ds.vecs).to(dev, torch.bfloat16)
+    qt = torch.from_numpy(qf).to(dev)
+    one_ids, one_d = flat_topk(qt, xall, K)
+    one_ids = one_ids.cpu().numpy()
+    diff = ids != one_ids
+    qb, xb = qt.to(torch.bfloat16).float(), xall.float()
+    got_d = ((qb[:, None, :] - xb[torch.from_numpy(ids).to(dev).long()]) ** 2).sum(-1)
+    gap = (got_d - one_d).abs().cpu().numpy()
+    tie_gap = float(gap[diff].max()) if diff.any() else 0.0
+    flat_rec = recall(sharded_flat_query(flat, ds.queries, K), ds.ground_truth)
+    phase("sharded", part="flat", B=FLAT_CHUNK, k=K, ids_differing=int(diff.sum()),
+          rows_differing=int(diff.any(1).sum()), worst_tie_gap=f"{tie_gap:.3e}", recall_at_10=f"{flat_rec:.4f}",
+          k2_launches=launches["flat"]["flat_topk"])
+    check(tie_gap <= 1e-2, f"sharded flat ids differ from one K2 call where the distances do not tie ({tie_gap})")
+    check(flat_rec >= 0.99, f"sharded flat recall@10 {flat_rec} < 0.99")
+    err["flat_topk"] = hold_flat_bf16(torch, "sharded_flat_shard0", flat_topk_cuda, qt, flat.x[0], K)
+    shard_ms = event_ms(lambda: [flat_topk_cuda(qt, xs, K) for xs in flat.x], reps=5)
+    one_ms = event_ms(lambda: flat_topk_cuda(qt, xall, K), reps=5)
+    phase("times", kernel="flat_topk", path="sharded_flat", B=FLAT_CHUNK, n_shard=flat.n_shard, k=K,
+          shards_ms=f"{shard_ms:.3f}", one_call_ms=f"{one_ms:.3f}", card=card)
+    qps, runs = median_qps(lambda b: sharded_flat_query(flat, b, K), QPS_QUERIES)
+    phase("sharded", part="flat", queries=QPS_QUERIES, qps_median=f"{qps:.0f}", qps=",".join(f"{v:.0f}" for v in runs),
+          card=card)
+    del flat, xall, qt, qb, xb, got_d
+
+    # (e) data-parallel serving on phase 4's graph (bf16 blocks)
+    gb = dataclasses.replace(g, packed_codes=None, packed_code_norms=None, packed_center=None, packed_scale=None)
+    gb.packed, gb.packed_norms, gb.packed_ids = build_packed(gb.vectors, gb.norms, gb.adj_bottom)
+    kw = dict(expand=cfg.query_expand, cand=cfg.fused_cand, seeds=cfg.entry_seeds, ef_cap=128)
+    qr = rng.standard_normal((QPS_QUERIES, D)).astype(np.float32)
+    dp, launches["dp"] = counted(lambda: replicated_fused_query_dp(gb, qr, K, 120, mesh, **kw))
+    whole = fused_query_batch(gb, torch.from_numpy(qr).to(dev), 120, K, **kw)[0].cpu().numpy()
+    n_same = int((dp == whole).all(1).sum())
+    check(launches["dp"] == {"fused_search": S}, f"replicated_fused_query_dp launched {launches['dp']}")
+    check(n_same == QPS_QUERIES, f"replicated DP ids differ from one fused_query_batch call on "
+                                 f"{QPS_QUERIES - n_same} rows")
+    qps, runs = median_qps(lambda b: replicated_fused_query_dp(gb, b, K, 120, mesh, **kw), QPS_QUERIES)
+    one_qps, one_runs = median_qps(
+        lambda b: fused_query_batch(gb, torch.from_numpy(b).to(dev), 120, K, **kw)[0].cpu().numpy(), QPS_QUERIES)
+    phase("sharded", part="replicated_dp", ef=120, queries=QPS_QUERIES, rows_identical=f"{n_same}/{QPS_QUERIES}",
+          qps_median=f"{qps:.0f}", qps=",".join(f"{v:.0f}" for v in runs), one_call_qps_median=f"{one_qps:.0f}",
+          one_call_qps=",".join(f"{v:.0f}" for v in one_runs), k1_launches=launches["dp"]["fused_search"], card=card)
+    del gb, dp, whole
+
+    # (f) one sharded construction step against the one-shard call
+    ns = shard_corpus[0][0].shape[0] - 1
+    v_parts, n_parts = [v for v, _ in shard_corpus], [nm for _, nm in shard_corpus]
+    vf, nf = make_corpus(ds.vecs, dev)
+    wave = vf[:SHARD_WAVE]
+    C, cap = bcfg.prune_cand, bcfg.M0
+    t0 = time.perf_counter()
+    c_ids, c_d = sharded_candidates(v_parts, n_parts, wave, C, ns, mesh)
+    o_ids, o_d = sharded_candidates([vf], [nf], wave, C, N, (dev,))
+    same_c = int(((c_ids == o_ids) | ((c_ids < 0) & (o_ids < 0))).all(1).sum())
+    step = dict(C=C, cap=cap, ortho_factor=bcfg.ortho_factor, ortho_bias=bcfg.ortho_bias,
+                prune_overflow=bcfg.prune_overflow)
+    (sel, _), launches["build_step"] = counted(lambda: sharded_build_step(v_parts, n_parts, wave, n_shard=ns,
+                                                                           mesh=mesh, **step))
+    one_sel, _ = sharded_build_step([vf], [nf], wave, n_shard=N, mesh=(dev,), **step)
+    sel = torch.where(sel >= N, N, sel)  # both sentinels as n
+    same_p = int((sel == one_sel).all(1).sum())
+    phase("sharded", part="build_step", wave=SHARD_WAVE, C=C, cap=cap, topc_rows_identical=f"{same_c}/{SHARD_WAVE}",
+          pruned_rows_identical=f"{same_p}/{SHARD_WAVE}", seconds=f"{time.perf_counter() - t0:.2f}")
+    check(same_c >= 0.99 * SHARD_WAVE and same_p >= 0.99 * SHARD_WAVE,
+          f"sharded build step: {same_c} top-C rows and {same_p} pruned rows of {SHARD_WAVE} identical (< 99%)")
+    check(launches["build_step"] == {}, f"the build step launched a kernel: {launches['build_step']}")
+    del shard_corpus, v_parts, n_parts, vf, nf, c_ids, c_d, o_ids, o_d, sel, one_sel
+
+    # (g) one global graph over the mesh: the canonical corpus (dense), then
+    # SHARD_FLAT_N clustered rows (flat candidates through K2)
+    def serve(graph) -> float:
+        eng = AntitopoEngine(config=cfg, device=dev)
+        eng.graph, eng.n, eng.dim = graph, graph.n, D
+        eng.set_ef_search(120)
+        ids = eng.query_k_batch(ds.queries, K)
+        check(rows_unique(ids), "distributed graph: duplicate ids")
+        return recall(ids, ds.ground_truth)
+
+    built = {}
+    for label, where in (("mesh", mesh), ("one_device", dev)):
+        t0 = time.perf_counter()
+        (graph, st), built[label + "_launches"] = counted(
+            lambda: build_distributed(ds.vecs, bcfg, where, candidates="dense"))
+        built[label] = (graph, st, time.perf_counter() - t0)
+    (gm, sm, tm), (g1, s1, t1) = built["mesh"], built["one_device"]
+    same = int((gm.adj_bottom == g1.adj_bottom).all(1).sum())
+    r_m, r_1 = serve(gm), serve(g1)
+    phase("sharded", part="distributed_dense", n=N, n_shards=sm["n_shards"], n_shard=sm["n_shard"], waves=sm["waves"],
+          seconds=f"{tm:.2f}", one_device_seconds=f"{t1:.2f}", rows_identical=f"{same}/{N + 1}",
+          recall_at_10=f"{r_m:.4f}", one_device_recall_at_10=f"{r_1:.4f}",
+          **{f"{k}_s": f"{v:.2f}" for k, v in sm["seconds"].items()}, card=card)
+    check(sm["n_shards"] == S and s1["n_shards"] == 1, f"n_shards {sm['n_shards']} / {s1['n_shards']}")
+    check(built["mesh_launches"] == {} and built["one_device_launches"] == {}, "a dense distributed build launched a kernel")
+    check(same >= 0.95 * (N + 1), f"distributed dense build over {S} shards: {same}/{N + 1} rows identical (< 95%)")
+    check(abs(r_m - r_1) <= 0.01, f"distributed recall@10 over {S} shards {r_m} vs one device {r_1}")
+    del built, gm, g1
+
+    n, M, efc, W = SHARD_FLAT_N, 48, 300, 4096
+    t0 = time.perf_counter()
+    x, q = generate_synthetic_clustered(n, M_QUERIES, D, seed=0)
+    bf = BruteForceEngine(mode="exact", batch_size=100, device=dev)
+    bf.store_many_vectors(x)
+    bf.build()
+    gt = bf.query_k_batch(q, K)
+    del bf
+    data_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (graph, st), launches["dist_flat"] = counted(lambda: build_distributed(
+        x, BuildConfig(M=M, ef_construction=efc, prune_cand=efc), mesh, wave_size=W, candidates="flat"))
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ns = st["n_shard"]
+    seg_rows, kk = flat_segments(ns, efc)
+    n_seg = (ns + seg_rows - 1) // seg_rows
+    waves = (n + W - 1) // W
+    inv = adjacency_invariants(torch, graph.adj_bottom[:n], n, 2 * M)
+    pt = graph_point(graph_engine(graph, D, M, 16384, "bf16", dev), q, gt, 2, 80, 8, "i8", rng, 0)
+    phase("sharded", part="distributed_flat", n=n, n_shards=st["n_shards"], n_shard=ns, waves=waves, segments=n_seg,
+          k=kk, build_seconds=f"{build_s:.2f}", data_and_truth_seconds=f"{data_s:.1f}", peak_gib=f"{peak:.2f}",
+          **{f"{k}_s": f"{v:.2f}" for k, v in st["seconds"].items()}, s8_recall_at_10_ef80=f"{pt['recall']:.4f}",
+          **inv, card=card)
+    phase("launches", path="sharded_distributed_flat", **launches["dist_flat"])
+    check(st["candidates"] == "flat" and launches["dist_flat"] == {"flat_topk": waves * S * n_seg},
+          f"the distributed flat build launched {launches['dist_flat']}, not exactly {waves} x {S} x {n_seg} K2 calls")
+    check(pt["recall"] >= 0.98, f"distributed flat graph s8 recall@10 at ef=80 {pt['recall']} < 0.98")
+    for path in ("packed_ef100", "packed_ef120", "flat", "dp", "build_step"):
+        phase("launches", path=f"sharded_{path}", **launches[path])
+    return dict(launches=launches, err=err)
+
+
 def main() -> None:
     import torch
 
@@ -1697,16 +1973,21 @@ def main() -> None:
     wres = wave_phase(torch, dev, ds, card, graph_recall)
     wave = launches["wave"] = wres["launches"]
 
+    # ---- 24. the multi-device layer ---------------------------------------------
+    sres = sharded_phase(torch, dev, ds, card, g, graph_recall)
+    sharded = {name: sum(c.get(name, 0) for c in sres["launches"].values()) for name in ("fused_search", "flat_topk")}
+
     rows = [
         ("fused_search", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:69",
-         launches["batched"]["fused_search"] + wave["fused_search"],
-         max(fused_err, cli_err["fused_search"], wres["err"]["fused_search"])),
+         launches["batched"]["fused_search"] + wave["fused_search"] + sharded["fused_search"],
+         max(fused_err, cli_err["fused_search"], wres["err"]["fused_search"], sres["err"]["fused_search"])),
         ("fused_search_s8", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:258",
          quant["fused_search_s8"] + mres["serve"]["fused_search_s8"] + wave["fused_search_s8"],
          max(qres["fused_s8_err"], cli_err["fused_search_s8"], mres["s8_err"], wres["err"]["fused_search_s8"])),
         ("flat_topk", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:147",
-         launches["batched"]["flat_topk"] + mres["build"]["flat_topk"] + mres["serve"]["flat_topk"],
-         max(flat_err["flat_topk"], mres["err"], mres["flat_err"])),
+         launches["batched"]["flat_topk"] + mres["build"]["flat_topk"] + mres["serve"]["flat_topk"]
+         + sharded["flat_topk"],
+         max(flat_err["flat_topk"], mres["err"], mres["flat_err"], sres["err"]["flat_topk"])),
         ("flat_topk_s8", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:211",
          quant["flat_topk_s8"] + mres["serve"]["flat_topk_s8"], max(flat_err["flat_topk_s8"], mres["flat_s8_err"])),
         ("flat_topk_fixed", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:39",

@@ -113,13 +113,14 @@ def penalized_topk(
     frontier: int,
     C: int,
     col_block: int,
-    chosen: Optional[torch.Tensor] = None,  # (r, OC) ids of previously chosen entry points
+    chosen: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # rows (r, OC, D), norms (r, OC)
     chosen_valid: Optional[torch.Tensor] = None,  # (r, OC) bool
     ortho_factor: float = 0.0,
     ortho_bias: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-C of the rows ``qv`` among rows [0, frontier) of ``vecs``
-    by the squared distance or, with ``chosen``, the ortho-penalized score
+    by the squared distance or, with ``chosen`` (the rows and norms of
+    previously chosen entry points), the ortho-penalized score
     (src/antitopo_engine.h:342-351):
 
         score(c) = d2(q, c) + sum over valid chosen p of
@@ -132,8 +133,7 @@ def penalized_topk(
     r = qv.shape[0]
     dev = qv.device
     if chosen is not None:
-        ch = torch.clamp_max(chosen.long(), vecs.shape[0] - 1)
-        pv, pn = vecs[ch].float(), norms[ch]  # (r, OC, D), (r, OC)
+        pv, pn = chosen[0].float(), chosen[1]
     run_s = torch.empty((r, 0), dtype=torch.float32, device=dev)
     run_i = torch.empty((r, 0), dtype=torch.int64, device=dev)
     rows = torch.arange(r, device=dev)
@@ -181,8 +181,9 @@ def ortho_knn(
     s_out = torch.full((n, C), INF, dtype=torch.float32, device=dev)
     for s in range(0, n, row_block):
         e = min(s + row_block, n)
+        ch = torch.clamp_max(chosen[s:e].long(), n - 1)
         ids, sc = penalized_topk(vecs[s:e], norms[s:e], torch.arange(s, e, device=dev), vecs, norms, n, C,
-                                 col_block, chosen[s:e], chosen_valid[s:e], ortho_factor, ortho_bias)
+                                 col_block, (vecs[ch], norms[ch]), chosen_valid[s:e], ortho_factor, ortho_bias)
         s_out[s:e, : sc.shape[1]] = sc
         ids_out[s:e, : sc.shape[1]] = ids.to(torch.int32)
     return ids_out, s_out

@@ -173,13 +173,14 @@ def fused_search_cuda(
     if B == 0:
         return obi, obd, ncomp, iters
     name = "fused_search_s8" if s8 else "fused_search"
-    code = getattr(_kernels.library(), f"expann_{name}" if s8 else f"expann_{name}_bf16")(
-        packed.data_ptr(), packed_norms.data_ptr(), packed_ids.data_ptr(), q.data_ptr(),
-        beam_d0.data_ptr(), beam_ids0.data_ptr(), obi.data_ptr(), obd.data_ptr(),
-        ncomp.data_ptr(), iters.data_ptr(),
-        B, D, RS, Rt, EF, int(ef), int(max_iters), E, int(topt), n1 - 1,
-        _kernels.stream_ptr(device),
-    )
+    with torch.cuda.device(device):  # the launcher sets its shared memory on the current device
+        code = getattr(_kernels.library(), f"expann_{name}" if s8 else f"expann_{name}_bf16")(
+            packed.data_ptr(), packed_norms.data_ptr(), packed_ids.data_ptr(), q.data_ptr(),
+            beam_d0.data_ptr(), beam_ids0.data_ptr(), obi.data_ptr(), obd.data_ptr(),
+            ncomp.data_ptr(), iters.data_ptr(),
+            B, D, RS, Rt, EF, int(ef), int(max_iters), E, int(topt), n1 - 1,
+            _kernels.stream_ptr(device),
+        )
     _kernels.check(code, name)
     _kernels.launches[name] += 1
     return obi, obd, ncomp, iters

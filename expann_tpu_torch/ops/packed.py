@@ -185,21 +185,24 @@ def packed_score_cuda(
         raise ValueError(f"q {tuple(q.shape)} does not match ({B}, {D})")
     if D % 8 or RS % 16 or RS == 0 or not 0 <= topt <= Rt or Rt > PACKED_SCORE_MAX_RT:
         raise ValueError(f"unsupported shape: D={D} RS={RS} topt={topt} R_tile={Rt}")
-    smem, allowed = _smem_bytes(D, RS, Rt)
-    if smem > allowed:
-        raise ValueError(f"packed_score at D={D} RS={RS} R_tile={Rt} needs {smem} bytes of shared memory; "
-                         f"a block may use {allowed}")
     K = topt or Rt
     out_d = torch.empty((B, E * K), dtype=torch.float32, device=device)
     out_i = torch.empty((B, E * K), dtype=torch.int32, device=device)
-    if B * E == 0:
-        return out_d, out_i
-    code = _kernels.library().expann_packed_score_bf16(
-        packed.data_ptr(), packed_norms.data_ptr(), packed_ids.data_ptr(), sel.data_ptr(),
-        q.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-        B, E, D, RS, Rt, int(topt), n1 - 1,
-        _kernels.stream_ptr(device),
-    )
+    # the card's limit, and the launcher's shared-memory setting, are the
+    # current device's
+    with torch.cuda.device(device):
+        smem, allowed = _smem_bytes(D, RS, Rt)
+        if smem > allowed:
+            raise ValueError(f"packed_score at D={D} RS={RS} R_tile={Rt} needs {smem} bytes of shared memory; "
+                             f"a block may use {allowed}")
+        if B * E == 0:
+            return out_d, out_i
+        code = _kernels.library().expann_packed_score_bf16(
+            packed.data_ptr(), packed_norms.data_ptr(), packed_ids.data_ptr(), sel.data_ptr(),
+            q.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            B, E, D, RS, Rt, int(topt), n1 - 1,
+            _kernels.stream_ptr(device),
+        )
     _kernels.check(code, "packed_score")
     _kernels.launches["packed_score"] += 1
     return out_d, out_i

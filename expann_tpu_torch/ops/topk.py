@@ -122,10 +122,11 @@ def _launch(name: str, q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.
     if B == 0:
         return ids, d
     name = f"{name}_s8" if s8 else name
-    code = getattr(_kernels.library(), f"expann_{name}" if s8 else f"expann_{name}_bf16")(
-        q.data_ptr(), x.data_ptr(), n, B, D, k, ids.data_ptr(), d.data_ptr(),
-        _kernels.stream_ptr(device),
-    )
+    with torch.cuda.device(device):  # the launcher sets its shared memory on the current device
+        code = getattr(_kernels.library(), f"expann_{name}" if s8 else f"expann_{name}_bf16")(
+            q.data_ptr(), x.data_ptr(), n, B, D, k, ids.data_ptr(), d.data_ptr(),
+            _kernels.stream_ptr(device),
+        )
     _kernels.check(code, name)
     _kernels.launches[name] += 1
     return ids, d

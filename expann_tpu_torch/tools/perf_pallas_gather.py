@@ -67,16 +67,19 @@ def block_gather_scores_cuda(packed: torch.Tensor, ids: torch.Tensor, q: torch.T
     G = ids.shape[0]
     if Dp % 8 or not 1 <= nbuf <= 16:
         raise ValueError(f"unsupported shape: D={Dp} (a multiple of 8), nbuf={nbuf} (1..16)")
-    if not ring_fits(R, nbuf, Dp):
-        lib = _kernels.library()
-        raise ValueError(f"a ring of {nbuf} blocks of {R} x {Dp} bf16 needs "
-                         f"{lib.expann_block_gather_smem_bytes(R, Dp, nbuf)} bytes of shared memory; "
-                         f"a block may use {lib.expann_smem_optin()}")
     out = torch.empty((G, R), dtype=torch.float32, device=device)
-    if G == 0:
-        return out
-    code = _kernels.library().expann_block_gather(packed.data_ptr(), ids.data_ptr(), q.data_ptr(), out.data_ptr(), G, R, Dp, nbuf,
-                                   _kernels.stream_ptr(device))
+    # the limit, the launcher's shared-memory setting and its grid are the
+    # current device's
+    with torch.cuda.device(device):
+        if not ring_fits(R, nbuf, Dp):
+            lib = _kernels.library()
+            raise ValueError(f"a ring of {nbuf} blocks of {R} x {Dp} bf16 needs "
+                             f"{lib.expann_block_gather_smem_bytes(R, Dp, nbuf)} bytes of shared memory; "
+                             f"a block may use {lib.expann_smem_optin()}")
+        if G == 0:
+            return out
+        code = _kernels.library().expann_block_gather(packed.data_ptr(), ids.data_ptr(), q.data_ptr(), out.data_ptr(),
+                                                      G, R, Dp, nbuf, _kernels.stream_ptr(device))
     _kernels.check(code, "block_gather")
     _kernels.launches["block_gather"] += 1
     return out

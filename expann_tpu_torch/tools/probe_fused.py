@@ -50,10 +50,11 @@ def probe_fused_cuda(tab: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, 
         raise ValueError(f"tab {tuple(tab.shape)} / x {tuple(x.shape)}: expected (n, 8, 128) / (8, 128)")
     o = torch.empty((ROWS, W), dtype=torch.float32, device=device)
     w = torch.empty((ROWS, W), dtype=torch.float32, device=device)
-    code = _kernels.library().expann_probe_fused(
-        tab.data_ptr(), x.data_ptr(), o.data_ptr(), w.data_ptr(), tab.shape[0], MAX_ITERS,
-        _kernels.stream_ptr(device),
-    )
+    with torch.cuda.device(device):
+        code = _kernels.library().expann_probe_fused(
+            tab.data_ptr(), x.data_ptr(), o.data_ptr(), w.data_ptr(), tab.shape[0], MAX_ITERS,
+            _kernels.stream_ptr(device),
+        )
     _kernels.check(code, "probe_fused")
     _kernels.launches["probe_fused"] += 1
     return o, w

@@ -94,8 +94,9 @@ def lane_ops_cuda(x: torch.Tensor, mode: str, iters: int = ITERS) -> torch.Tenso
     if x.dim() != 2 or x.shape[1] != W or x.shape[0] == 0:
         raise ValueError(f"x {tuple(x.shape)}: expected (rows, {W})")
     out = torch.empty_like(x)
-    code = _kernels.library().expann_probe_lanes(x.data_ptr(), out.data_ptr(), x.shape[0], int(iters),
-                                                 MODES.index(mode), _kernels.stream_ptr(device))
+    with torch.cuda.device(device):
+        code = _kernels.library().expann_probe_lanes(x.data_ptr(), out.data_ptr(), x.shape[0], int(iters),
+                                                     MODES.index(mode), _kernels.stream_ptr(device))
     _kernels.check(code, "probe_lanes")
     _kernels.launches["probe_lanes"] += 1
     return out

@@ -93,11 +93,12 @@ def step_overhead_cuda(q: torch.Tensor, bd0: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"packed has {packed.shape[0]} blocks; the copies read {NODES}")
     lib = _kernels.library()
     rs = packed.shape[1]
-    if (dma or scratch) and lib.expann_step_overhead_smem_bytes(rs) > lib.expann_smem_optin():
-        raise ValueError(f"the scratch for RS={rs} does not fit one block's shared memory")
     out = torch.empty_like(bd0)
-    code = lib.expann_step_overhead(q.data_ptr(), bd0.data_ptr(), packed.data_ptr(), out.data_ptr(), Bq, rs,
-                                    int(iters), NODES, int(dma), int(scratch), carry, _kernels.stream_ptr(device))
+    with torch.cuda.device(device):  # the limit and the shared-memory setting are the current device's
+        if (dma or scratch) and lib.expann_step_overhead_smem_bytes(rs) > lib.expann_smem_optin():
+            raise ValueError(f"the scratch for RS={rs} does not fit one block's shared memory")
+        code = lib.expann_step_overhead(q.data_ptr(), bd0.data_ptr(), packed.data_ptr(), out.data_ptr(), Bq, rs,
+                                        int(iters), NODES, int(dma), int(scratch), carry, _kernels.stream_ptr(device))
     _kernels.check(code, "step_overhead")
     _kernels.launches["step_overhead"] += 1
     return out

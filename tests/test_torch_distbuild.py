@@ -1,5 +1,7 @@
-"""The port's one-device distributed builder against the JAX package's
-(``build_distributed`` on ``make_mesh(1)``), and the clustered generator."""
+"""The port's distributed builder against the JAX package's: on one device
+(``build_distributed`` on ``make_mesh(1)``), and with the shard axis on a
+mesh of 8 CPU devices (``[cpu] * 8`` against ``make_mesh(8)``, the JAX
+tests' 8 virtual devices); and the clustered generator."""
 
 import jax
 import jax.numpy as jnp
@@ -72,7 +74,7 @@ def _as_port(jg) -> GraphIndex:
 
 def _recall(graph: GraphIndex, q: np.ndarray, gt: np.ndarray) -> float:
     eng = AntitopoEngine(config=AntitopoConfig(M=CFG["M"], ef_search=40, query_expand=2), device="cpu")
-    eng.graph, eng.n, eng.dim = graph, N, D
+    eng.graph, eng.n, eng.dim = graph, graph.n, q.shape[1]
     ids = eng.query_k_batch(q, 10)
     return float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ids, gt)]))
 
@@ -269,3 +271,76 @@ def test_engine_routes_to_distributed_builder(data, monkeypatch):
         assert calls == ([routed] if want is direct else []), builder
         assert torch.equal(eng.graph.adj_bottom, want.adj_bottom), builder
         assert eng.graph.starting_vertex == want.starting_vertex
+
+
+MESH8 = ["cpu"] * 8
+
+
+def _data8(n, m, seed):
+    """The JAX S = 8 tests' data (tests/test_distbuild.py): n x 32 and m
+    queries from one seed, with exact top-10 ground truth."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, D)).astype(np.float32)
+    q = rng.standard_normal((m, D)).astype(np.float32)
+    d2 = ((q[:, None] - x[None]) ** 2).sum(-1)
+    return x, q, np.argsort(d2, axis=1, kind="stable")[:, :10]
+
+
+def _both8(x, cfg: dict, **kw):
+    """The JAX build on make_mesh(8) and the port's on [cpu] * 8, with the
+    same stats (n_shards 8) but the port's stage seconds."""
+    jg, jstats = jdist.build_distributed(x, jbuild.BuildConfig(**cfg), make_mesh(8), **kw)
+    tg, tstats = tdist.build_distributed(x, tbuild.BuildConfig(**cfg), MESH8, **kw)
+    assert {k: v for k, v in tstats.items() if k != "seconds"} == jstats and jstats["n_shards"] == 8
+    _invariants(tg.adj_bottom.numpy(), x.shape[0], 2 * cfg["M"])
+    adj = tg.adj_bottom.numpy()[: x.shape[0]]
+    src = np.arange(x.shape[0])[:, None] // tstats["n_shard"]
+    dst = np.where(adj == x.shape[0], -1, adj // tstats["n_shard"])
+    assert ((dst >= 0) & (dst != src)).any(), "no cross-shard edges: not one global graph"
+    return tg, jg
+
+
+@pytest.mark.parametrize("mode", ["oneshot", "incremental"])
+def test_distributed_build_one_global_graph_on_8_devices(mode):
+    """The JAX test of one global graph over 8 shards (n = 4000, waves of
+    512, bootstrap 500 capped at n_shard), dense candidates from every
+    shard merged by (d, id): the same stats, >= 95% of bottom rows
+    identical (all matched when the gate was set), cross-shard edges, the
+    same start vertex and levels, recall@10 within 0.01 of the JAX graph's."""
+    x, q, gt = _data8(4000, 60, 0)
+    cfg = dict(M=10, ef_construction=80, prune_cand=64)
+    tg, jg = _both8(x, cfg, wave_size=512, bootstrap=500, mode=mode)
+    assert tg.starting_vertex == int(jg.starting_vertex) and len(tg.layers) == len(jg.layers)
+    same = (tg.adj_bottom.numpy() == np.asarray(jg.adj_bottom)).all(1).mean()
+    assert same >= 0.95, same
+    r_port, r_jax = _recall(tg, q, gt), _recall(_as_port(jg), q, gt)
+    assert r_port >= 0.85 and abs(r_port - r_jax) <= 0.01, (r_port, r_jax)
+
+
+@pytest.mark.parametrize("efc,m,seed", [(48, 40, 5), (160, 30, 8)], ids=["flat", "wide_flat"])
+def test_distributed_flat_candidates_on_8_devices(efc, m, seed):
+    """Flat candidates over 8 shards of 256 rows (one segment a shard at
+    C = 48, two at C = 160 > 127), K2's plain version here, against the
+    JAX flat build (its kernel in interpret mode).  The JAX kernel pools
+    each block to 128 lanes and the port's selection is exact, so rows
+    differ where a pooled lane dropped a candidate (86% / 76% identical
+    when the gate was set): the gate is recall@10 within 0.02."""
+    x, q, gt = _data8(2048, m, seed)
+    cfg = dict(M=8, ef_construction=efc, prune_cand=efc)
+    tg, jg = _both8(x, cfg, wave_size=256, mode="oneshot", candidates="flat")
+    r_port, r_jax = _recall(tg, q, gt), _recall(_as_port(jg), q, gt)
+    assert r_port >= 0.8 and abs(r_port - r_jax) <= 0.02, (r_port, r_jax)
+
+
+def test_distributed_build_ortho2_on_8_devices():
+    """ortho_count=2 at ortho_bias=-1 over 8 shards (incremental, the
+    penalized pass scored on every shard against the chosen rows gathered
+    from their owners and merged per pass): the same stats, >= 95% of
+    bottom rows identical, recall@10 within 0.01."""
+    x, q, gt = _data8(3000, 50, 11)
+    cfg = dict(M=10, ef_construction=80, prune_cand=64, ortho_count=2, ortho_bias=-1.0)
+    tg, jg = _both8(x, cfg, wave_size=512, bootstrap=500, mode="incremental")
+    same = (tg.adj_bottom.numpy() == np.asarray(jg.adj_bottom)).all(1).mean()
+    assert same >= 0.95, same
+    r_port, r_jax = _recall(tg, q, gt), _recall(_as_port(jg), q, gt)
+    assert r_port >= 0.85 and abs(r_port - r_jax) <= 0.01, (r_port, r_jax)

@@ -610,3 +610,47 @@ def test_lane_ops_match_plain(dev, mode):
         assert torch.equal(got, ref)
     else:
         torch.testing.assert_close(got, ref, rtol=1e-5 if mode == "matmul_cumsum" else 1e-6, atol=1e-6)
+
+
+@pytest.fixture
+def two_cards():
+    """cuda:0 and cuda:1; skips where fewer than two cards are visible."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (a launch on cuda:1 while cuda:0 is current)")
+    return torch.device("cuda:0"), torch.device("cuda:1")
+
+
+def test_kernels_launch_on_the_operands_device(two_cards):
+    """K2, K1 and K4 with their operands on cuda:1 while cuda:0 is the
+    current device: each wrapper makes the operands' device current for
+    its launch (the shared-memory limit is set per device, and K2 at
+    k=128, K1 at EF=256, K4 at R=128 need more than the default), so each
+    result equals the same call on cuda:0 and the current device is left
+    as it was."""
+    d0, d1 = two_cards
+    torch.cuda.set_device(d0)
+    q, x = _flat_bf16_inputs(d0, 5000, 300, 128, seed=12)
+    vecs, norms, adj, rng = _random_graph(d0, 4000, 120, 256, seed=13)
+    packed, pn, pi = build_packed(vecs, norms, adj)
+    B, EF = 64, 256
+    qg = torch.from_numpy(rng.standard_normal((B, 256)).astype(np.float32)).to(d0)
+    bd0 = torch.full((B, EF), float("inf"), device=d0)
+    bi0 = torch.full((B, EF), 4000, dtype=torch.int32, device=d0)
+    bi0[:, 0] = torch.from_numpy(rng.integers(0, 4000, B).astype(np.int32)).to(d0)
+    bd0[:, 0] = ((qg - vecs[bi0[:, 0].long()]) ** 2).sum(1)
+    sel = torch.from_numpy(rng.integers(0, 4001, (B, 2)).astype(np.int32)).to(d0)
+    calls = {
+        "flat_topk": lambda t: flat_topk(t(q), t(x), 128),
+        "fused_search": lambda t: fused_search(t(packed), t(pn), t(pi), t(qg), t(bd0), t(bi0), 200, expand=2, cand=8),
+        "packed_score": lambda t: packed_score(t(packed), t(pn), t(pi), t(sel), t(qg), 8),
+    }
+    for name, call in calls.items():
+        before = _kernels.launches[name]
+        on0 = call(lambda a: a)
+        on1 = call(lambda a: a.to(d1))
+        torch.cuda.synchronize(d0)
+        torch.cuda.synchronize(d1)
+        assert torch.cuda.current_device() == 0
+        assert _kernels.launches[name] == before + 2
+        for a, b in zip(on0, on1):
+            assert b.device == d1 and torch.equal(a, b.to(d0)), name
