@@ -156,7 +156,20 @@ Phases, one line each:
                    corpus against one device (>= 95% of rows identical,
                    recall within 0.01), then flat on 262144 clustered rows
                    (exactly waves x S x segments K2 launches, s8 recall@10
-                   at ef=80 >= 0.98).
+                   at ef=80 >= 0.98);
+ 25. bigflat       tools/bench_bigflat's flat route at BIGFLAT_N = 2^24 + 2^20
+                   rows (its corpus and 100 held-out queries; exact f32 ground
+                   truth by the plain version on the card in column blocks): the
+                   100 queries inside one fused engine call of 8448 (one K2
+                   launch, recall@10 >= 0.99, ids >= 2^24 present); K2 held to
+                   its plain version on them and K2-s8 on s8 codes of the same
+                   n (k=30, identical); K2's ms per 16384-query call beside its
+                   bound and the library chain, the 100-query call's seconds,
+                   host-clock QPS;
+ 26. sift_like     tools/make_sift_like at n=65536, m=1000, k=100 under build/:
+                   read_vecs through the native reader (utils/io_native.py),
+                   byte-equal to the numpy reader; load_sift1m into a flat
+                   fused engine, recall@10 >= 0.99 against the file's truth.
 Then the script's run time, the kernel summary as JSON, the card's name
 and power limit as nvidia-smi prints them, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -204,6 +217,12 @@ WAVE_ORTHO_N = 16384  # phase 23 (d): rows of the ortho-pass builds
 SHARDS = 4  # phase 24: shards over the visible cards, round-robin
 SHARD_WAVE = 4096  # phase 24 (f): the sharded build step's wave
 SHARD_FLAT_N = 262144  # phase 24 (g): rows of the distributed flat build
+# phase 25: tools/bench_bigflat.py's 20M rows cut to 2^24 + 2^20 to fit this
+# script's time; ids >= 2^24 are still ~6% of the rows
+BIGFLAT_N = (1 << 24) + (1 << 20)
+BIGFLAT_B = 132 * 64  # one call of K2 blocks for every SM of an H100 (64 queries a block)
+BIGFLAT_Q = 100  # the tool's held-out queries (numpy seed 1)
+SIFT_LIKE = (65536, 1000, 100)  # phase 26: n, m, k of tools/make_sift_like.py, cut from 1M / 10k
 
 
 def graph_cfg():
@@ -329,8 +348,8 @@ def hold_flat_bf16(torch, label: str, fn, q, x, k: int) -> float:
     err = float((dk - pd).abs().max())
     check(bool(torch.isfinite(dk).all()), f"{label}: non-finite distances")
     check(bool(torch.allclose(dk, pd, rtol=D_RTOL, atol=D_ATOL)), f"{label} k={k}: distances differ by {err}")
-    qb, xb = q.to(torch.bfloat16).float(), x.float()
-    exact_of_kernel_ids = ((qb[:, None, :] - xb[ids.long()]) ** 2).sum(-1)
+    qb = q.to(torch.bfloat16).float()
+    exact_of_kernel_ids = ((qb[:, None, :] - x[ids.long()].float()) ** 2).sum(-1)
     mism = ids != pids
     tie_err = float((exact_of_kernel_ids - pd).abs()[mism].max()) if bool(mism.any()) else 0.0
     check(tie_err <= 1e-2, f"{label} k={k}: a differing id is not a tie ({tie_err})")
@@ -1637,6 +1656,161 @@ def sharded_phase(torch, dev, ds, card: str, g, graph_recall: dict) -> dict:
     return dict(launches=launches, err=err)
 
 
+def bigflat_phase(torch, dev, card: str) -> dict:
+    """Phase 25: tens of millions of flat rows (tools/bench_bigflat.py) at
+    BIGFLAT_N rows: the tool's corpus (``gen_corpus``, numpy seed 0) and
+    its 100 held-out queries (seed 1), exact f32 ground truth by the plain
+    version on the card (``flat_topk_plain`` on the f32 corpus, in column
+    blocks); ``BruteForceEngine(mode="fused")``
+    answers the 100 queries inside one call of BIGFLAT_B (so K2's grid
+    fills the card), counts reset just before it: exactly one K2 launch,
+    recall@10 >= 0.99, at least one id >= 2^24.  Then K2 held to its plain
+    version on the 100 queries (ids identical but on ties), K2-s8 on s8
+    codes of the same n made on the card, 128 queries at k=30 (identical);
+    K2's ms per 16384-query call beside its bound and the library chain
+    (bf16 products with f32 results, ``topk`` per column block, merged), and
+    the engine's host-clock QPS on 16384 fresh queries.  Returns the
+    launches, the held errors and K2's times at this shape."""
+    from expann_tpu_torch.models.brute_force import BruteForceEngine
+    from expann_tpu_torch.ops import _kernels
+    from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_plain
+    from expann_tpu_torch.tools.bench_bigflat import BIG_ID, gen_corpus
+    from expann_tpu_torch.utils.profiling import event_ms
+
+    n = BIGFLAT_N
+    t0 = time.perf_counter()
+    x = gen_corpus(n, D)
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((BIGFLAT_Q, D)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)  # f32: the plain version scores it in column blocks
+    gt = flat_topk_plain(torch.from_numpy(q).to(dev), xd, K)[0].cpu().numpy()
+    del xd
+    data_s = time.perf_counter() - t0
+
+    _kernels.launches.clear()
+    eng = BruteForceEngine(mode="fused", device=dev)
+    eng.store_many_vectors(x)
+    t0 = time.perf_counter()
+    eng.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del x
+    batch = rng.standard_normal((BIGFLAT_B, D)).astype(np.float32)
+    batch[:BIGFLAT_Q] = q
+    t0 = time.perf_counter()
+    ids = eng.query_k_batch(batch, K)[:BIGFLAT_Q]
+    call_s = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    rec = recall(ids, gt)
+    big = int((ids >= BIG_ID).sum())
+    phase("bigflat", n=n, d=D, corpus_gb=f"{n * D * 2 / 1e9:.2f}", data_and_truth_seconds=f"{data_s:.1f}",
+          build_seconds=f"{build_s:.2f}", call_queries=BIGFLAT_B, call_seconds=f"{call_s:.3f}",
+          recall_at_10=f"{rec:.4f}", ids_ge_2_24=big, truth_ids_ge_2_24=int((gt >= BIG_ID).sum()), card=card)
+    phase("launches", path="bigflat", **launches)
+    check(launches == {"flat_topk": 1}, f"the bigflat call launched {launches}, not one K2 call")
+    check(rec >= 0.99, f"bigflat recall@10 {rec} < 0.99")
+    check(big >= 1, "no result id >= 2^24 at 2^24 + 2^20 rows")
+
+    xf = eng._x_fused
+    q100 = torch.from_numpy(q).to(dev)
+    err = hold_flat_bf16(torch, "bigflat_flat", flat_topk_cuda, q100, xf, K)
+    t0 = time.perf_counter()
+    flat_topk_cuda(q100, xf, K)
+    torch.cuda.synchronize()
+    small_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(25)
+    x8 = torch.randint(-127, 128, (n, D), generator=gen, device=dev, dtype=torch.int8)
+    q8 = torch.randint(-127, 128, (128, D), generator=gen, device=dev, dtype=torch.int8)
+    s8_err = hold_flat_s8(torch, "bigflat_flat_s8", flat_topk_cuda, q8, x8, 3 * K)
+    del x8, q8
+
+    qb = torch.from_numpy(rng.standard_normal((FLAT_CHUNK, D)).astype(np.float32)).to(dev, torch.bfloat16)
+    ms = event_ms(lambda: flat_topk_cuda(qb, xf, K), reps=2)
+    step = 1 << 20
+    xn = torch.cat([(xf[s : s + step].float() ** 2).sum(1) for s in range(0, n, step)])
+
+    def chain():  # per 4096 queries and 2^20 rows: one bf16 product with f32 results, topk; merged
+        out = []
+        for s in range(0, FLAT_CHUNK, 4096):
+            best_d = best_i = None
+            for c in range(0, n, step):
+                d2 = torch.mm(qb[s : s + 4096], xf[c : c + step].T, out_dtype=torch.float32)
+                v, i = torch.topk(d2.mul_(-2.0).add_(xn[c : c + step]), K, dim=1, largest=False)
+                if best_d is None:
+                    best_d, best_i = v, i
+                else:
+                    best_d, o = torch.topk(torch.cat([best_d, v], 1), K, dim=1, largest=False)
+                    best_i = torch.cat([best_i, i + c], 1).gather(1, o)
+            out.append(best_i)
+        return out
+
+    lib_ms = event_ms(chain, reps=1, warmup=0)
+    b = bound(n * D * 2 + FLAT_CHUNK * D * 2 + FLAT_CHUNK * K * 8, 2.0 * FLAT_CHUNK * n * D)
+    eng.query_k_batch(rng.standard_normal((1024, D)).astype(np.float32), K)
+    runs = []
+    for _ in range(2):
+        qs = rng.standard_normal((FLAT_CHUNK, D)).astype(np.float32)
+        t0 = time.perf_counter()
+        eng.query_k_batch(qs, K)
+        runs.append(FLAT_CHUNK / (time.perf_counter() - t0))
+    phase("times", kernel="flat_topk", path="bigflat", B=FLAT_CHUNK, n=n, k=K, ms=f"{ms:.3f}",
+          library_ms=f"{lib_ms:.3f}", vs_library=f"{lib_ms / ms:.2f}x", bound_ms=f"{b[0]:.4f}", bound_by=b[1],
+          achieved_tflops=f"{2.0 * FLAT_CHUNK * n * D / (ms * 1e-3) / 1e12:.1f}",
+          call_100_queries_seconds=f"{small_s:.3f}", qps=",".join(f"{v:.0f}" for v in runs), card=card)
+    del eng, xf, qb, xn
+    torch.cuda.empty_cache()
+    times = dict(bigflat_ms=ms, bigflat_library_ms=lib_ms, bigflat_bound_ms=b[0], bigflat_bound_by=b[1],
+                 bigflat_n=n, bigflat_launches=launches["flat_topk"], bigflat_100_query_call_s=small_s)
+    return dict(launches=launches, err=err, s8_err=s8_err, times=times)
+
+
+def sift_like_phase(torch, dev, card: str) -> dict:
+    """Phase 26: the SIFT-like files (tools/make_sift_like.py) at SIFT_LIKE's
+    reduced n, m, k, written under build/: read back through the loader's
+    ``read_vecs``, which must take the native reader (utils/io_native.py,
+    built by g++ into build/native/) and equal the numpy reader byte for
+    byte; then ``load_sift1m`` feeds a flat ``fused`` engine (counts reset
+    just before it), recall@10 against the file's ground truth >= 0.99.
+    Returns the launches."""
+    import shutil
+
+    from expann_tpu_torch.data.loader import load_sift1m, read_vecs, read_vecs_numpy
+    from expann_tpu_torch.models.brute_force import BruteForceEngine
+    from expann_tpu_torch.ops import _kernels
+    from expann_tpu_torch.tools.make_sift_like import make_sift_like
+    from expann_tpu_torch.utils import io_native
+
+    n, m, k = SIFT_LIKE
+    out = os.path.join(ROOT, "build", "chip_smoke_sift_like")
+    t0 = time.perf_counter()
+    res = make_sift_like(out, n, m, D, k, 7, dev)
+    make_s = time.perf_counter() - t0
+    files = [(os.path.join(out, name), dtype) for name, dtype in (
+        ("sift_base.fvecs", np.float32), ("sift_query.fvecs", np.float32), ("sift_groundtruth.ivecs", np.int32))]
+    before = io_native.reads
+    same = [read_vecs(f, dtype).tobytes() == read_vecs_numpy(f, dtype).tobytes() for f, dtype in files]
+    native = io_native.reads - before
+    _kernels.launches.clear()
+    ds = load_sift1m(*(f for f, _ in files), k_custom=k)
+    eng = BruteForceEngine(mode="fused", device=dev)
+    eng.store_many_vectors(ds.vecs)
+    eng.build()
+    rec = recall(eng.query_k_batch(ds.queries, K), ds.ground_truth[:, :K])
+    launches = dict(_kernels.launches)
+    phase("sift_like", n=n, m=m, k=k, bounds=f"{res['bounds'][0]:.4f},{res['bounds'][1]:.4f}",
+          make_seconds=f"{make_s:.1f}", truth_seconds=f"{res['gt_s']:.2f}", native_reads=native,
+          native_library=io_native._load()._name, bytes_equal_numpy=all(same), recall_at_10=f"{rec:.4f}", card=card)
+    phase("launches", path="sift_like", **launches)
+    shutil.rmtree(out)
+    check(native == len(files), f"read_vecs took the native reader for {native} of {len(files)} files")
+    check(all(same), f"the native reader differs from numpy on {[f for (f, _), s in zip(files, same) if not s]}")
+    check(ds.vecs.shape == (n, D) and float(ds.vecs.min()) >= 0 and float(ds.vecs.max()) <= 255,
+          "the SIFT-like corpus is not u8-valued")
+    check(rec >= 0.99, f"SIFT-like flat recall@10 {rec} < 0.99")
+    check(launches.get("flat_topk", 0) > 0, f"the SIFT-like flat engine never launched K2: {launches}")
+    return dict(launches=launches)
+
+
 def main() -> None:
     import torch
 
@@ -1977,6 +2151,10 @@ def main() -> None:
     sres = sharded_phase(torch, dev, ds, card, g, graph_recall)
     sharded = {name: sum(c.get(name, 0) for c in sres["launches"].values()) for name in ("fused_search", "flat_topk")}
 
+    # ---- 25. tens of millions of flat rows; 26. the SIFT-like files -------------
+    bres = bigflat_phase(torch, dev, card)
+    launches["sift_like"] = sift_like_phase(torch, dev, card)["launches"]
+
     rows = [
         ("fused_search", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:69",
          launches["batched"]["fused_search"] + wave["fused_search"] + sharded["fused_search"],
@@ -1986,10 +2164,11 @@ def main() -> None:
          max(qres["fused_s8_err"], cli_err["fused_search_s8"], mres["s8_err"], wres["err"]["fused_search_s8"])),
         ("flat_topk", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:147",
          launches["batched"]["flat_topk"] + mres["build"]["flat_topk"] + mres["serve"]["flat_topk"]
-         + sharded["flat_topk"],
-         max(flat_err["flat_topk"], mres["err"], mres["flat_err"], sres["err"]["flat_topk"])),
+         + sharded["flat_topk"] + bres["launches"]["flat_topk"] + launches["sift_like"]["flat_topk"],
+         max(flat_err["flat_topk"], mres["err"], mres["flat_err"], sres["err"]["flat_topk"], bres["err"])),
         ("flat_topk_s8", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:211",
-         quant["flat_topk_s8"] + mres["serve"]["flat_topk_s8"], max(flat_err["flat_topk_s8"], mres["flat_s8_err"])),
+         quant["flat_topk_s8"] + mres["serve"]["flat_topk_s8"],
+         max(flat_err["flat_topk_s8"], mres["flat_s8_err"], bres["s8_err"])),
         ("flat_topk_fixed", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:39",
          launches["flat_fixed"]["flat_topk_fixed"], flat_err["flat_fixed"]),
         ("flat_topk_fixed_s8", "expann_tpu_torch/csrc/flat_topk.cu", "expann_tpu/ops/pallas_topk.py:65",
@@ -2007,7 +2186,7 @@ def main() -> None:
     ]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n_launch,
-         "max_abs_err": err, **times[name], **(mres["times"] if name == "flat_topk" else {})}
+         "max_abs_err": err, **times[name], **({**mres["times"], **bres["times"]} if name == "flat_topk" else {})}
         for name, src, rep, n_launch, err in rows
     ]
     phase("total", seconds=f"{time.perf_counter() - t_start:.1f}")

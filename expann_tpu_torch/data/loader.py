@@ -1,6 +1,7 @@
 """Dataset loaders: synthetic Gaussian, the clustered million-row corpus
 and SIFT1M fvecs/ivecs (copy of expann_tpu/data/loader.py; ground truth
-from this package's exact engine).
+from this package's exact engine, fvecs/ivecs through the native reader
+first, as there).
 
 Counterpart of the reference dataset_loader (src/dataset_loader.h):
 synthetic N(0,1) vectors with brute-force ground truth cached to JSON
@@ -16,11 +17,21 @@ from typing import Optional
 import numpy as np
 
 from expann_tpu_torch.data.dataset import TestDataset
+from expann_tpu_torch.utils.io_native import native_read_vecs
 
 
 def read_vecs(filename: str, dtype=np.float32) -> np.ndarray:
     """Read an fvecs/ivecs file: each record is (int32 d, d * 4-byte items)
-    (reference: src/dataset_loader.h:96-125)."""
+    (reference: src/dataset_loader.h:96-125).  The native reader
+    (utils/io_native.py) parses it when its library builds and loads;
+    ``read_vecs_numpy`` only when it does not.  A file the native reader
+    rejects raises ``IOError``: it is not read again by numpy."""
+    arr = native_read_vecs(filename, dtype)
+    return read_vecs_numpy(filename, dtype) if arr is None else arr
+
+
+def read_vecs_numpy(filename: str, dtype=np.float32) -> np.ndarray:
+    """``read_vecs`` in numpy alone."""
     raw = np.fromfile(filename, dtype=np.int32)
     if raw.size == 0:
         raise IOError(f"empty vecs file: {filename}")

@@ -38,7 +38,8 @@ def exact_topk(q: torch.Tensor, x: torch.Tensor, x_norms: torch.Tensor, k: int):
     (``torch.topk`` does not)."""
     d2 = pairwise_dist2(q, x, x_norms=x_norms)
     d_s, idx = torch.sort(d2, dim=1, stable=True)
-    return idx[:, :k], d_s[:, :k]
+    # copies: a view would keep the whole (B, N) sort alive in the caller
+    return idx[:, :k].clone(), d_s[:, :k].clone()
 
 
 def rerank_exact(q: torch.Tensor, x: torch.Tensor, x_norms: torch.Tensor, cand_ids: torch.Tensor, k: int):

@@ -70,28 +70,39 @@ def quantize_query_i8(q: np.ndarray, center: np.ndarray, scale: float) -> np.nda
 
 
 def flat_topk_plain(
-    q: torch.Tensor, x: torch.Tensor, k: int, chunk: int = 1024
+    q: torch.Tensor, x: torch.Tensor, k: int, chunk: int = 1024, col_block: int = 1 << 20
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernels: the same distances, an exact
     (d, id)-ordered selection by stable sort.  Returns ``(ids, d)``
     ``(B, k)`` int32 / f32.  On int8 codes every f32 product and partial
     sum is an exact integer, so the distances equal the kernels' bit for
-    bit."""
+    bit.  The corpus is scored in blocks of ``col_block`` rows (queries in
+    chunks of ``chunk``), each block's k best merged into the running list
+    by a stable sort: the earlier blocks hold the lower ids, so the merged
+    list stays ordered by (d, id) and memory stays bounded at tens of
+    millions of rows."""
     _check_query_dtype(q, x)
     B = q.shape[0]
     n = x.shape[0]
-    xf = x.float()
-    xn = torch.sum(xf * xf, dim=1)
-    ids_out, d_out = [], []
-    for s in range(0, B, chunk):
-        qc = q[s : s + chunk].to(x.dtype).float()
-        qn = torch.sum(qc * qc, dim=1)
-        d2 = torch.clamp_min((qn[:, None] + xn[None, :]) - 2.0 * (qc @ xf.T), 0.0)
-        d_s, idx = torch.sort(d2, dim=1, stable=True)
-        ids_out.append(idx[:, :k].to(torch.int32))
-        d_out.append(d_s[:, :k])
-    ids = torch.cat(ids_out) if ids_out else torch.empty((0, min(k, n)), dtype=torch.int32)
-    d = torch.cat(d_out) if d_out else torch.empty((0, min(k, n)))
+    qf = q.to(x.dtype).float()
+    qn = torch.sum(qf * qf, dim=1)
+    ids = torch.empty((B, 0), dtype=torch.int32, device=x.device)
+    d = torch.empty((B, 0), device=x.device)
+    for c0 in range(0, n, col_block):
+        xf = x[c0 : c0 + col_block].float()
+        xn = torch.sum(xf * xf, dim=1)
+        ids_b, d_b = [], []
+        for s in range(0, B, chunk):
+            d2 = torch.clamp_min((qn[s : s + chunk, None] + xn[None, :]) - 2.0 * (qf[s : s + chunk] @ xf.T), 0.0)
+            d_s, idx = torch.sort(d2, dim=1, stable=True)
+            ids_b.append(idx[:, :k].to(torch.int32) + c0)
+            d_b.append(d_s[:, :k].clone())  # not a view: it would hold the whole block's sort
+        if not ids_b:  # B == 0
+            return torch.empty((0, k), dtype=torch.int32, device=x.device), torch.empty((0, k), device=x.device)
+        ids, d = torch.cat([ids, torch.cat(ids_b)], 1), torch.cat([d, torch.cat(d_b)], 1)
+        if c0:
+            d, order = torch.sort(d, dim=1, stable=True)
+            ids, d = ids.gather(1, order[:, :k]), d[:, :k]
     if k > n:
         ids = torch.cat([ids, torch.full((B, k - n), -1, dtype=torch.int32, device=ids.device)], 1)
         d = torch.cat([d, torch.full((B, k - n), float("inf"), device=d.device)], 1)

@@ -108,6 +108,42 @@ def _assert_s8_identical_to_plain(q, x, k, ids, d):
     assert torch.equal(ids, pids), int((ids != pids).sum())
 
 
+@pytest.mark.parametrize("s8", [False, True], ids=["bf16", "s8"])
+def test_flat_topk_past_2_24_rows(dev, s8):
+    """K2 / K2-s8 over 2^24 + 4096 rows at D=64, integer-valued so that every
+    distance is exact on both sides: each query's three nearest rows are
+    planted past row 2^24 (the query itself, then +1 on one and on two
+    coordinates), and a copy of the first below 2^24 ties with it at d=0.
+    Ids and distances identical to the plain version, the planted ids (f32
+    could not hold them) at their places."""
+    n, B, D, big = (1 << 24) + 4096, 96, 64, 1 << 24
+    k = 30 if s8 else 10
+    gen = torch.Generator(device=dev).manual_seed(24)
+    lim = 127 if s8 else 8
+    x = torch.randint(-lim, lim + 1, (n, D), generator=gen, device=dev, dtype=torch.int8)
+    q = torch.randint(-lim + 2, lim - 1, (B, D), generator=gen, device=dev, dtype=torch.int8)
+    rows = big + 17 + 40 * torch.arange(B, device=dev)
+    bump = torch.zeros((B, D), dtype=torch.int8, device=dev)
+    x[rows] = q
+    bump[:, 0] = 1
+    x[rows + 1] = q + bump
+    bump[:, 1] = 1
+    x[rows + 2] = q + bump
+    low = 5 + torch.arange(B, device=dev)
+    x[low] = q
+    if not s8:
+        x, q = x.to(torch.bfloat16), q.float()
+    ids, d = _flat_launch(q, x, k, "count")
+    pids, pd = flat_topk_plain(q, x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(d, pd), float((d - pd).abs().nan_to_num().max())
+    assert torch.equal(ids, pids), int((ids != pids).sum())
+    want = torch.stack([low, rows, rows + 1, rows + 2], 1).to(torch.int32)
+    assert torch.equal(ids[:, :4], want)
+    assert torch.equal(d[:, :4], torch.tensor([0.0, 0.0, 1.0, 2.0], device=dev).expand(B, 4))
+    assert int((ids >= big).sum()) >= 3 * B
+
+
 @pytest.mark.parametrize("mode", ["count", "fixed"])
 @pytest.mark.parametrize("n,B,k,D", FLAT_BF16_SHAPES)
 def test_flat_topk_matches_plain(dev, n, B, k, D, mode):
