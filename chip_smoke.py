@@ -5,8 +5,10 @@ Phases, one line each:
   1. device        the card, as torch and nvidia-smi name it;
   2. build         nvcc builds the kernels of expann_tpu_torch/csrc for sm_90a
                    (registers and spills from ptxas, the most of any template
-                   instance, shared memory per launch; no flat top-k kernel,
-                   K2, K2-s8, K3 or K3-s8, and not the block scorer K4, may
+                   instance, shared memory per launch, and the traversal
+                   kernels' resident queries per SM at the canonical widths;
+                   no flat top-k kernel, K2, K2-s8, K3 or K3-s8, not the block
+                   scorer K4 and not the traversal kernels K1 and K1-s8 may
                    spill);
   3. flat_topk     the count-mode flat top-k kernel (K2) against its plain
                    version, random bf16 corpus n=56000, d=128, 4096 queries,
@@ -36,7 +38,12 @@ Phases, one line each:
                    at B = 1, 8, 32 on both graph routes (host clock, numpy in
                    and out), and kernel / plain / library-chain times (CUDA
                    events, utils/profiling.event_ms) at the paths' shapes,
-                   beside each kernel's bound; K2 and K3 are first held to
+                   beside each kernel's bound (K1's bound counts every input
+                   byte once, tools/perf_fused_search.traversal_bound: the
+                   distinct blocks the call expands, as the plain version
+                   records them, with its gathered rate, a block an
+                   expansion, beside it); K2 and K3
+                   are first held to
                    their plain version on the timed inputs (16384 queries
                    on the flat engine's corpus) with phase 3's limits, and
                    each flat kernel's time is printed as a factor of the
@@ -64,7 +71,8 @@ Phases, one line each:
                    0 just before a path and read just after;
  14. probe_fused   P1 (expann_tpu_torch/tools/probe_fused.py) against its
                    plain version: the bulk copy by an in-kernel index and the
-                   data-dependent loop, identical;
+                   data-dependent loop, identical; its time beside one
+                   indexing call's copy of the same entry (tab[entry]);
  15. probe_gather  P2 against its plain version on all 33001 rows at every
                    ring of the sweep (R 16-128 x NBUF 2, 4, 8) on its 2 GiB
                    tables, the refusal of the R=128, NBUF=8 ring, and the
@@ -483,8 +491,9 @@ def quantized_phases(torch, dev, ds, graph, cfg, card: str, topt: int) -> dict:
     from expann_tpu_torch import BruteForceEngine
     from expann_tpu_torch.models.search import entry_beam, kernel_query
     from expann_tpu_torch.ops import _kernels
-    from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain
+    from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain, ring_for
     from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_fixed_cuda, flat_topk_plain, quantize_query_i8
+    from expann_tpu_torch.tools.perf_fused_search import YARDSTICK, expanded_blocks, traversal_bound
     from expann_tpu_torch.utils.profiling import event_ms
 
     launches, times, failures = {}, {}, []
@@ -618,14 +627,19 @@ def quantized_phases(torch, dev, ds, graph, cfg, card: str, topt: int) -> dict:
     targs = (*args, kernel_query(g, qt), bd0, bi0, ef, cfg.query_expand, topt, 8 * ef + 16)
     ms = event_ms(lambda: fused_search_cuda(*targs), reps=5)
     plain_ms = event_ms(lambda: fused_search_plain(*targs), reps=1)
-    # bytes the traversal must read: per expansion one RS x D s8 block plus RS
-    # norms and RS ids; queries and beams in and out
-    expansions = int(fused_search_cuda(*targs)[2].sum()) / rs
-    kb = bound(expansions * rs * (D + 8) + Bq * (D * 4 + 4 * EF * 4 + 8), expansions * rs * D * 2.0, "int8")
-    times["fused_search_s8"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=kb[0], bound_by=kb[1])
+    # the bound counts every input byte once (phase 8's count, on s8 blocks)
+    expansions = int(fused_search_cuda(*targs)[2].sum()) // rs
+    blocks = expanded_blocks(*targs)
+    kb = traversal_bound(expansions, blocks, rs, D, g.packed_norms.shape[1], "s8", Bq, EF)
+    ring = ring_for(True, Bq, D, rs, g.packed_norms.shape[1], EF, cfg.query_expand)
+    times["fused_search_s8"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=kb["bound_ms"],
+                                    bound_by=kb["bound_by"])
     phase("times", kernel="fused_search_s8", B=Bq, ef=ef, EF=EF, ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
-          bound_ms=f"{kb[0]:.3f}", bound_by=kb[1], expansions_per_query=f"{expansions / Bq:.1f}",
-          achieved_tb_per_s=f"{expansions * rs * (D + 8) / (ms * 1e-3) / 1e12:.2f}", card=card)
+          bound_ms=f"{kb['bound_ms']:.4f}", bound_by=kb["bound_by"], share=f"{kb['bound_ms'] / ms:.4f}",
+          expansions_per_query=f"{expansions / Bq:.1f}", blocks=blocks, blocks_of_layout=g.packed.shape[0] - 1,
+          gathered_tb_per_s=f"{kb['gathered_bytes'] / (ms * 1e-3) / 1e12:.3f}",
+          gathered_yardstick=repr(YARDSTICK["s8"]),
+          ring=f"{ring[0]}x{ring[1]}", ctas_per_sm=ring[2], card=card)
 
     check(not failures, "; ".join(failures))
     return dict(launches=launches, times=times, fused_s8_err=fused_s8_err, flat_err=flat_err,
@@ -658,12 +672,16 @@ def probe_phases(torch, dev, card: str) -> dict:
     check(torch.equal(o, po) and torch.equal(w, pw), f"probe_fused differs from its plain version ({err['probe_fused']})")
     ms = event_ms(lambda: pf.probe_fused_cuda(tab, x), reps=200)
     plain_ms = event_ms(lambda: pf.probe_fused_plain(tab, x), reps=5)
+    # the library's copy of the same entry: one indexing call by a device index
+    entry = (torch.argmin(x[0]) % tab.shape[0]).reshape(1)
+    check(torch.equal(tab[entry][0], po), "tab[entry] is not the entry probe_fused copies")
+    lib_ms = event_ms(lambda: tab[entry], reps=200)
     # one block: latency sets its time; the bytes it must move (one 4 KB
     # entry, x, o and w) give the bound
     pb = bound(4 * 4096, 0.0)
-    times["probe_fused"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=pb[0], bound_by=pb[1])
-    phase("probe_fused", us=f"{ms * 1e3:.3f}", plain_us=f"{plain_ms * 1e3:.1f}", bound_us=f"{pb[0] * 1e3:.5f}",
-          limited_by="latency", card=card)
+    times["probe_fused"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=pb[0], bound_by=pb[1])
+    phase("probe_fused", us=f"{ms * 1e3:.3f}", plain_us=f"{plain_ms * 1e3:.1f}", library_us=f"{lib_ms * 1e3:.3f}",
+          bound_us=f"{pb[0] * 1e3:.5f}", limited_by="latency", card=card)
 
     # ---- 15. P2 -------------------------------------------------------------
     # every ring of the sweep on the sweep's own 2 GiB tables, at a step count
@@ -1822,9 +1840,10 @@ def main() -> None:
     from expann_tpu_torch.data.loader import load_synthetic_uniform_sphere_points
     from expann_tpu_torch.models.search import entry_beam
     from expann_tpu_torch.ops import _kernels
-    from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain, topt_for
+    from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain, ring_for, topt_for
     from expann_tpu_torch.ops.packed import build_packed, packed_score_cuda, packed_score_plain
     from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_fixed_cuda, flat_topk_plain
+    from expann_tpu_torch.tools.perf_fused_search import YARDSTICK, expanded_blocks, traversal_bound
     from expann_tpu_torch.utils.profiling import card_name, event_ms
 
     dev = torch.device("cuda")
@@ -1842,26 +1861,30 @@ def main() -> None:
     ptx = ptxas_summary(_kernels.build_report())
     check(set(ptx) == set(KERNEL_NAMES), f"ptxas report lists {sorted(ptx)}")
     check(all(v["arch"] == "sm_90a" for v in ptx.values()), f"not built for sm_90a: {ptx}")
-    topt = topt_for(cfg.fused_cand, cfg.query_expand, 128)
     smem = {
         "flat_topk_kernel": lib.expann_flat_topk_smem_bytes(D, K),
         "flat_topk_fixed_kernel": lib.expann_flat_topk_fixed_smem_bytes(D, K),
-        "fused_search_kernel": lib.expann_fused_search_smem_bytes(D, 128, 128, cfg.query_expand, topt),
+        "fused_search_kernel": lib.expann_fused_search_smem_bytes(0, D, 128, 128, 128, cfg.query_expand),
         "packed_score_kernel": lib.expann_packed_score_smem_bytes(D, 128, 128),
         "flat_topk_s8_kernel": lib.expann_flat_topk_smem_bytes(D, 3 * K),
         "flat_topk_fixed_s8_kernel": lib.expann_flat_topk_fixed_smem_bytes(D, 3 * K),
-        "fused_search_s8_kernel": lib.expann_fused_search_smem_bytes(D, 128, 128, cfg.query_expand, topt),
+        "fused_search_s8_kernel": lib.expann_fused_search_smem_bytes(1, D, 128, 128, 128, cfg.query_expand),
         "probe_fused_kernel": 0,
         "block_gather_kernel": lib.expann_block_gather_smem_bytes(128, D, 4),
         "step_overhead_kernel": lib.expann_step_overhead_smem_bytes(128),
         "probe_lanes_kernel": 0,
     }
+    # resident queries per SM of the traversal kernels at the canonical widths and batch
+    ctas = {name: ring_for(s8, cfg.query_block, D, 128, 128, 128, cfg.query_expand)[2]
+            for name, s8 in (("fused_search_kernel", False), ("fused_search_s8_kernel", True))}
+    check(all(v >= 1 for v in ctas.values()), f"a traversal kernel cannot be resident: {ctas}")
     for kname, info in sorted(ptx.items()):
         phase("build", kernel=kname, arch=info["arch"], instances=info["instances"], registers=info["registers"],
-              spill_bytes=info["spill_bytes"], dynamic_smem_bytes=smem[kname])
+              spill_bytes=info["spill_bytes"], dynamic_smem_bytes=smem[kname],
+              **({"ctas_per_sm": ctas[kname]} if kname in ctas else {}))
     phase("build", seconds=f"{build_s:.3f}", source=os.path.join("expann_tpu_torch", "csrc"))
     no_spill = ("flat_topk_kernel", "flat_topk_s8_kernel", "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel",
-                "packed_score_kernel")
+                "packed_score_kernel", "fused_search_kernel", "fused_search_s8_kernel")
     check(all(ptx[name]["spill_bytes"] == 0 for name in no_spill),
           f"a kernel that may not spill spills registers: {[(name, ptx[name]) for name in no_spill]}")
 
@@ -2056,18 +2079,25 @@ def main() -> None:
     fargs = (*args, qt, bd0, bi0, ef, cfg.query_expand, topt, 8 * ef + 16)
     fused_ms = event_ms(lambda: fused_search_cuda(*fargs), reps=5)
     fused_plain_ms = event_ms(lambda: fused_search_plain(*fargs), reps=1)
-    # bytes the traversal must read: per expansion one RS x D bf16 block plus
-    # RS norms and RS ids (ncomp counts RS per expansion); queries and beams in and out
+    # the bound counts every input byte once: the distinct blocks the call
+    # expands (the plain version's record) with their norm and id rows,
+    # queries and beams in and out (ncomp counts RS per expansion); the
+    # gathered rate, a block an expansion
     rs = g.packed.shape[1]
     Bq = cfg.query_block
-    expansions = int(fused_search_cuda(*fargs)[2].sum()) / rs
-    fused_bound = bound(expansions * rs * (2 * D + 8) + Bq * (D * 4 + 4 * EF * 4 + 8), expansions * rs * D * 2.0)
+    expansions = int(fused_search_cuda(*fargs)[2].sum()) // rs
+    blocks = expanded_blocks(*fargs)
+    kb = traversal_bound(expansions, blocks, rs, D, g.packed_norms.shape[1], "bf16", Bq, EF)
+    ring = ring_for(False, Bq, D, rs, g.packed_norms.shape[1], EF, cfg.query_expand)
     times["fused_search"] = dict(ms=fused_ms, plain_ms=fused_plain_ms, library_ms=None,
-                                 bound_ms=fused_bound[0], bound_by=fused_bound[1])
+                                 bound_ms=kb["bound_ms"], bound_by=kb["bound_by"])
     phase("times", kernel="fused_search", B=Bq, ef=ef, EF=EF, ms=f"{fused_ms:.3f}",
-          plain_ms=f"{fused_plain_ms:.3f}", bound_ms=f"{fused_bound[0]:.3f}", bound_by=fused_bound[1],
-          expansions_per_query=f"{expansions / Bq:.1f}",
-          achieved_tb_per_s=f"{expansions * rs * (2 * D + 8) / (fused_ms * 1e-3) / 1e12:.2f}", card=card)
+          plain_ms=f"{fused_plain_ms:.3f}", bound_ms=f"{kb['bound_ms']:.4f}", bound_by=kb["bound_by"],
+          share=f"{kb['bound_ms'] / fused_ms:.4f}", expansions_per_query=f"{expansions / Bq:.1f}",
+          blocks=blocks, blocks_of_layout=g.packed.shape[0] - 1,
+          gathered_tb_per_s=f"{kb['gathered_bytes'] / (fused_ms * 1e-3) / 1e12:.3f}",
+          gathered_yardstick=repr(YARDSTICK["bf16"]),
+          ring=f"{ring[0]}x{ring[1]}", ctas_per_sm=ring[2], card=card)
     del bd0, bi0, fargs
 
     t4 = cfg.packed_topt

@@ -20,9 +20,9 @@
 //     as the TPU kernel's cast does), |q|^2 is taken from the f32 input and
 //     q.x is an exact s32 sum of s8 products (__dp4a), so every distance is
 //     an exact integer (|code| <= 127, D <= 512 keeps them below 2^24);
-//   * per selected node in order: extract its best TOPT by (d, row),
-//     flag those whose id is already in the beam (checked against the beam
-//     as it stands when that node's turn starts), then offer them in
+//   * per selected node in order: take its best TOPT by (d, row), skip
+//     those whose id is already in the beam (checked against the beam as
+//     it stands when that node's turn starts), and offer the others in
 //     ascending order: each replaces the live worst (d, lane) if strictly
 //     smaller.
 // ncomp counts RS per selected (non-sentinel) node, padding rows included.
@@ -31,126 +31,345 @@
 // byte (not ~id), and termination is per query (a done query in a TPU
 // tile is inert, so the results are the same).
 //
-// What bounds it on this card: device-memory latency and bandwidth.  One
-// expansion reads an RS x D block (128 x 128 x 2 = 32 KB in bf16, 16 KB in
-// s8) at a data-dependent address; at the canonical 56k config the packed
-// array is 1.84 GB (s8: 0.92 GB) and the 50 MB L2 holds ~3% (~5%) of it,
-// so nearly every block comes from HBM.  The merge is a few warp
-// reductions over <= 512 entries.
+// What bounds it on this card.  Counted once per byte, the traversal's
+// inputs (the 1.89 GB bf16 layout at the canonical 56k config, 0.98 GB in
+// s8) take ~0.6 ms (~0.3 ms) at 3.35 TB/s; but each block is read once
+// per query that expands it, ~35 times a 16384-query call, and the 50 MB
+// L2 holds 3-5% of the layout, so the work is a random gather of 33.8 KB
+// (s8 16.9 KB) items from HBM, one per expansion, at a data-dependent
+// address that the previous iteration's merge decides.  The gather rate
+// sets the pace, and that rate is the bytes in flight per SM over the
+// memory latency: the design keeps as many queries resident as it can,
+// each with a copy in flight for as much of its time as it can.
 //
-// Design: 128 threads per query.  All four warps score: a group of LPR
-// lanes (16 for bf16, 8 for s8: one 16-byte load per lane covers a
-// 128-element row either way) owns one packed row at a time and reads it
-// with coalesced 16-byte loads (a warp covers two bf16 or four s8
-// contiguous rows), four rows in flight per group, then reduces its LPR
-// partial dots by shuffles.  Warp 0 alone
-// runs selection and merge on the beam in shared memory with shuffle
-// argmin / argmax over (d, lane) pairs.  Many blocks per SM (up to 16)
-// keep enough loads in flight to cover the latency.
+// Design: one query a block of 64 threads (two warps), 16 blocks an SM.
+//  * Copy.  As soon as selection names the iteration's nodes, one thread
+//    starts bulk asynchronous copies (`cp.async.bulk`, completed on an
+//    mbarrier with complete_tx bytes) of their blocks in chunks of CR rows
+//    through a ring of NSLOT slots (one 8 KB slot, 32 bf16 or 64 s8 rows a
+//    chunk, unless the batch is small enough for a deeper ring to keep it
+//    all resident: choose_plan), and in the first chunk's wave every
+//    selected node's norm and id rows (R_tile x 4 B each).  The scoring warps read the
+//    block from shared memory: no row is staged through registers and no
+//    norm or id load depends on a dot.  A slot is refilled with the
+//    iteration's next chunk as soon as it has been scored.  A wait that
+//    lasts WAIT_TIMEOUT_NS traps: the launch fails (the caller's next
+//    synchronizing call raises) instead of hanging the card or returning a
+//    beam while copies are still in flight.
+//  * Score.  Both warps: a group of LPR lanes (16 for bf16, 8 for s8: one
+//    16-byte load a lane covers a 128-element row either way, a
+//    quarter-warp reads 128 contiguous bytes, no bank conflict) owns a row,
+//    four (s8: two) rows in flight a group, then folds its LPR partial dots
+//    by an xor butterfly; |q|^2 is summed in one fixed order (as 128 lanes
+//    would) whatever the block size, so no distance depends on it.
+//  * Merge (warp 0), a node as soon as its last chunk is scored, while the
+//    next node's chunks are in flight and the other warp waits for them.
+//    Every reduction is a (distance, index) key reduced by two `redux.sync`
+//    instructions (min or max of the distance's orderable bits, then of the
+//    index among the lanes that hold it), not a chain of shuffles.  Only
+//    rows below the beam's live worst at selection can enter it, so a
+//    node's top-TOPT is drawn from those alone, best first; each is checked
+//    against a snapshot of the beam's ids taken at the node's turn and
+//    offered to the live worst at once; the first refused ends the turn.
+//  * Select (warp 0): the live worst and E argmins, the same reductions.
+//  * Occupancy.  13.5 KB of shared memory (13.2 KB in s8) and at most 64
+//    registers a thread (`__launch_bounds__(64, 16)`, no spills) give 16
+//    resident queries an SM, 2112 on the card: while one merges and
+//    selects, the others' copies are in flight.  Larger rings cut that
+//    count (two 32 KB slots: 3 an SM) and were slower on an H100 at 16384
+//    canonical queries; a batch small enough for a deeper ring to keep all
+//    of it resident takes one (choose_plan).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 64;
 constexpr int WARPS = THREADS / 32;
-constexpr int ROWS_PER_LANE = 8;  // RS <= 256
-constexpr int UNROLL = 4;         // packed rows in flight per lane group
+constexpr int QN_LANES = 128;        // |q|^2 is summed as 128 lanes would, whatever THREADS
+constexpr int MIN_BLOCKS = 16;       // resident blocks an SM: at most 64 registers a thread
+constexpr int DEFAULT_SLOT = 8192;   // the default ring: one 8 KB slot (32 bf16 or 64 s8 rows)
+constexpr int HEADER = 64;           // the slots' mbarriers, then the stage region
+constexpr int MAX_SLOTS = HEADER / 8;
+constexpr int MAX_RS = 256;          // rows a block: 8 per lane of warp 0
+constexpr int SMEM_LIMIT = 232448;   // shared memory a block may use (227 KB)
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned NONE = 0xffffffffu;
 constexpr float FINTH = 1.0e38f;  // "finite": real distances are far below
+constexpr unsigned long long WAIT_TIMEOUT_NS = 2000000000ull;  // 2 s
 
-struct DL {
-  float d;
-  int l;
-};
+// ---------------------------------------------------------------------------
+// bulk copies and mbarriers (the pattern of packed_score.cu and probes.cu)
 
-__device__ __forceinline__ bool dl_less(float ad, int al, float bd, int bl) {
-  return ad < bd || (ad == bd && al < bl);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ DL warp_min(DL v) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    const float od = __shfl_xor_sync(FULL, v.d, off);
-    const int ol = __shfl_xor_sync(FULL, v.l, off);
-    if (dl_less(od, ol, v.d, v.l)) v = DL{od, ol};
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// one thread; then fence_barrier_init and a block barrier before any wait
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// order this thread's earlier shared-memory accesses (and those made
+// visible to it by a barrier) before a bulk copy that overwrites them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// One thread: arm `bar` for `bytes` in all, then start each copy on it.
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// `src`, `dst` and `bytes` are multiples of 16.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` of `bar` has completed; trap
+// after WAIT_TIMEOUT_NS.
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_u32(bar);
+  const uint64_t t0 = global_ns();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (global_ns() - t0 > WAIT_TIMEOUT_NS) __trap();
   }
-  return v;
 }
 
-__device__ __forceinline__ DL warp_max(DL v) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    const float od = __shfl_xor_sync(FULL, v.d, off);
-    const int ol = __shfl_xor_sync(FULL, v.l, off);
-    if (dl_less(v.d, v.l, od, ol)) v = DL{od, ol};
+// ---------------------------------------------------------------------------
+// keys: the unsigned order of orderable(d) is the float order of d,
+// negatives included; -0 counts as +0.  NONE is above every real key.
+
+__device__ __forceinline__ uint32_t orderable(float d) {
+  uint32_t u = __float_as_uint(d);
+  if (u == 0x80000000u) u = 0u;
+  return u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
+}
+
+__device__ __forceinline__ float from_orderable(uint32_t u) {
+  return __uint_as_float(u ^ ((u >> 31) ? 0x80000000u : 0xffffffffu));
+}
+
+// The warp's smallest key (h, i) by h, then i: h and i of it in every lane.
+__device__ __forceinline__ void warp_argmin(uint32_t h, uint32_t i, uint32_t& mh, uint32_t& mi) {
+  mh = __reduce_min_sync(FULL, h);
+  mi = __reduce_min_sync(FULL, h == mh ? i : NONE);
+}
+
+// The warp's largest key (h, i) by h, then i.
+__device__ __forceinline__ void warp_argmax(uint32_t h, uint32_t i, uint32_t& mh, uint32_t& mi) {
+  mh = __reduce_max_sync(FULL, h);
+  mi = __reduce_max_sync(FULL, h == mh ? i : 0u);
+}
+
+// The live worst (d, lane) of the beam: (orderable(d), lane) in every lane.
+__device__ __forceinline__ void live_worst(const float* bd, int ef, int lane, uint32_t& wh, uint32_t& wl) {
+  uint32_t h = 0u, l = 0u;  // below every real key: orderable(d) >= 0x80000000 for d >= 0
+  for (int j = lane; j < ef; j += 32) {
+    const uint32_t k = orderable(bd[j]);
+    if (k >= h) {  // j ascends: ties keep the larger lane
+      h = k;
+      l = (uint32_t)j;
+    }
   }
-  return v;
+  warp_argmax(h, l, wh, wl);
 }
 
-// best unexpanded live entry by (d, lane); (+inf, INT_MAX) when none
-__device__ __forceinline__ DL best_unexpanded(const float* bd, const unsigned char* bx,
-                                              int ef, int lane) {
-  DL v{INFINITY, INT_MAX};
-  for (int j = lane; j < ef; j += 32)
-    if (!bx[j] && dl_less(bd[j], j, v.d, v.l)) v = DL{bd[j], j};
-  return warp_min(v);
-}
+// ---------------------------------------------------------------------------
+// block element types: the query as the scorer holds it, and the partial
+// dot of one 16-byte load against it
 
-// worst live entry by (d, lane)
-__device__ __forceinline__ DL worst_live(const float* bd, int ef, int lane) {
-  DL v{-INFINITY, -1};
-  for (int j = lane; j < ef; j += 32)
-    if (dl_less(v.d, v.l, bd[j], j)) v = DL{bd[j], j};
-  return warp_max(v);
-}
-
-// Block element types: the query as the scorer holds it in shared memory,
-// and the partial dot of one 16-byte load against it.
 template <typename T>
 struct Blk;
 
 template <>
 struct Blk<__nv_bfloat16> {
-  static constexpr int PER16 = 8;   // elements per 16-byte load
-  static constexpr int LPR = 16;    // lanes per 128-element row
+  static constexpr int ELT = 2;
+  static constexpr int PER16 = 8;  // elements per 16-byte load
+  static constexpr int LPR = 16;   // lanes per 128-element row
+  static constexpr int QBYTES = 4; // the query in shared memory: f32
+  static constexpr int UNROLL = 4; // rows in flight per lane group while scoring
+  using Acc = float;
+  struct Frag {
+    float4 a, b;
+  };
   // qs[i]: the query rounded to bf16, as f32
-  __device__ __forceinline__ static void stage(float* qs, int i, float v) {
-    qs[i] = __bfloat162float(__float2bfloat16_rn(v));
+  __device__ __forceinline__ static void stage(unsigned char* qs, int i, float v) {
+    reinterpret_cast<float*>(qs)[i] = __bfloat162float(__float2bfloat16_rn(v));
   }
-  __device__ __forceinline__ static float dot(const uint4& v, const float* qs, int c, float acc) {
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h2[j]);
-      acc = fmaf(f.x, qs[c + 2 * j], acc);
-      acc = fmaf(f.y, qs[c + 2 * j + 1], acc);
-    }
-    return acc;
+  __device__ __forceinline__ static Frag frag(const unsigned char* qs, int c) {
+    const float4* p = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(qs) + c);
+    return Frag{p[0], p[1]};
+  }
+  __device__ __forceinline__ static float dot(const uint4& v, const Frag& f, float acc) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+    float2 x = __bfloat1622float2(h[0]);
+    acc = fmaf(x.x, f.a.x, acc);
+    acc = fmaf(x.y, f.a.y, acc);
+    x = __bfloat1622float2(h[1]);
+    acc = fmaf(x.x, f.a.z, acc);
+    acc = fmaf(x.y, f.a.w, acc);
+    x = __bfloat1622float2(h[2]);
+    acc = fmaf(x.x, f.b.x, acc);
+    acc = fmaf(x.y, f.b.y, acc);
+    x = __bfloat1622float2(h[3]);
+    acc = fmaf(x.x, f.b.z, acc);
+    return fmaf(x.y, f.b.w, acc);
   }
 };
 
 template <>
 struct Blk<int8_t> {
+  static constexpr int ELT = 1;
   static constexpr int PER16 = 16;
   static constexpr int LPR = 8;
-  // the qs region holds the query's s8 codes, packed 4 to a word
-  __device__ __forceinline__ static void stage(float* qs, int i, float v) {
+  static constexpr int QBYTES = 1;  // the query's s8 codes
+  static constexpr int UNROLL = 2;  // 4 was 3% slower at 16384 queries (H100)
+  using Acc = int;                  // exact: |sums| < 2^24
+  struct Frag {
+    int4 w;
+  };
+  __device__ __forceinline__ static void stage(unsigned char* qs, int i, float v) {
     reinterpret_cast<int8_t*>(qs)[i] = (int8_t)(int)v;
   }
-  __device__ __forceinline__ static float dot(const uint4& v, const float* qs, int c, float acc) {
-    const int* qw = reinterpret_cast<const int*>(qs) + c / 4;
-    int s = __dp4a((int)v.x, qw[0], 0);
-    s = __dp4a((int)v.y, qw[1], s);
-    s = __dp4a((int)v.z, qw[2], s);
-    s = __dp4a((int)v.w, qw[3], s);
-    return acc + (float)s;  // exact: |partial sums| < 2^24
+  __device__ __forceinline__ static Frag frag(const unsigned char* qs, int c) {
+    return Frag{*reinterpret_cast<const int4*>(qs + c)};
+  }
+  __device__ __forceinline__ static int dot(const uint4& v, const Frag& f, int acc) {
+    acc = __dp4a((int)v.x, f.w.x, acc);
+    acc = __dp4a((int)v.y, f.w.y, acc);
+    acc = __dp4a((int)v.z, f.w.z, acc);
+    return __dp4a((int)v.w, f.w.w, acc);
   }
 };
+
+// ---------------------------------------------------------------------------
+// the shared-memory plan, the same on the host and the card
+
+__host__ __device__ inline int align16(int v) { return (v + 15) & ~15; }
+
+struct Plan {
+  int cr;     // rows a chunk
+  int nc;     // chunks a block
+  int nslot;  // ring slots
+  int slot;   // bytes a slot (cr rows)
+  // byte offsets of the regions in dynamic shared memory
+  int aux_n, aux_i, sd, qs, bd, bi, bs, bx, ctl, smem;
+};
+
+__host__ __device__ inline Plan make_plan(int elt, int qbytes, int D, int RS, int Rt, int EF, int E, int nslot,
+                                          int slot) {
+  Plan p;
+  const int rb = D * elt;
+  p.cr = slot / rb;
+  if (p.cr > RS) p.cr = RS;
+  if (p.cr < 1) p.cr = 1;
+  p.nc = (RS + p.cr - 1) / p.cr;
+  p.nslot = nslot < E * p.nc ? nslot : E * p.nc;  // never more slots than an iteration's chunks
+  if (p.nslot < 1) p.nslot = 1;
+  p.slot = p.cr * rb;
+  int o = HEADER + p.nslot * p.slot;
+  p.aux_n = o;
+  o += align16(E * Rt * 4);
+  p.aux_i = o;
+  o += align16(E * Rt * 4);
+  p.sd = o;
+  o += align16(E * RS * 4);
+  p.qs = o;
+  o += align16(D * qbytes);
+  p.bd = o;
+  o += align16(EF * 4);
+  p.bi = o;
+  o += align16(EF * 4);
+  p.bs = o;
+  o += align16(EF * 4);
+  p.bx = o;
+  o += align16(EF);
+  p.ctl = o;
+  o += align16(4 * (2 * E + 2 + QN_LANES / 32));
+  p.smem = o;
+  return p;
+}
+
+// ---------------------------------------------------------------------------
+
+// One selected node's turn (warp 0): its rows `de` (distances) and `ie`
+// (ids) against the beam.  Only rows below `wd`, the live worst at
+// selection, can enter (the worst never rises within an iteration), so the
+// node's top-TOPT by (d, row) is drawn from those alone, best first; each
+// is skipped if its id was in the beam when the turn started (the snapshot
+// `bs`), else offered to the live worst; the first refused ends the turn
+// (later rows are no smaller, the worst is no larger).
+__device__ __forceinline__ void merge_node(const float* de, const int* ie, float* bd, int* bi, int* bs,
+                                           unsigned char* bx, float wd, int RS, int EF, int ef, int topt,
+                                           int sentinel, int lane) {
+  unsigned pm = 0u;
+#pragma unroll
+  for (int i = 0; i < MAX_RS / 32; ++i) {
+    const int j = lane + 32 * i;
+    if (j < RS && de[j] < wd) pm |= 1u << i;
+  }
+  if (!__any_sync(FULL, pm != 0u)) return;
+  for (int j = lane; j < EF; j += 32) bs[j] = bi[j];
+  __syncwarp();
+  for (int t = 0; t < topt; ++t) {
+    uint32_t h = NONE, l = NONE;
+#pragma unroll
+    for (int i = 0; i < MAX_RS / 32; ++i) {
+      if (!((pm >> i) & 1u)) continue;
+      const uint32_t k = orderable(de[lane + 32 * i]);
+      if (k < h) {  // rows ascend with i: ties keep the smaller row
+        h = k;
+        l = (uint32_t)(lane + 32 * i);
+      }
+    }
+    uint32_t ch, cr;
+    warp_argmin(h, l, ch, cr);
+    if (ch == NONE) break;  // no row left below the worst
+    if ((int)(cr & 31) == lane) pm &= ~(1u << (cr >> 5));
+    const float cd = de[cr];
+    const int cid = ie[cr];
+    uint32_t wh, wl;
+    live_worst(bd, ef, lane, wh, wl);
+    bool hit = false;
+    if (cid != sentinel)
+      for (int j = lane; j < EF; j += 32) hit |= bs[j] == cid;
+    if (__any_sync(FULL, hit)) continue;
+    if (!(cd < from_orderable(wh))) break;
+    if ((int)(wl & 31) == lane) {
+      bd[wl] = cd;
+      bi[wl] = cid;
+      bx[wl] = 0;
+    }
+    __syncwarp();
+  }
+  __syncwarp();
+}
 
 template <typename T>
 __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      // (N+1, RS, D)
@@ -163,40 +382,52 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
                                            float* __restrict__ obd,  // (B, EF)
                                            int* __restrict__ oncomp,
                                            int* __restrict__ oiters,  // (B,)
-                                           int D, int RS, int Rt, int EF, int ef, int max_iters,
-                                           int E, int topt, int sentinel) {
-  constexpr int PER16 = Blk<T>::PER16;
-  constexpr int LPR = Blk<T>::LPR;
-  constexpr int GROUPS = THREADS / LPR;
-  extern __shared__ float4 smem4[];
-  const int NS = E * RS;
-  float* qs = reinterpret_cast<float*>(smem4);  // [D] the query as the scorer reads it
-  float* sd = qs + D;                           // [NS] scored distances
-  int* sid = reinterpret_cast<int*>(sd + NS);   // [NS] their ids
-  float* bd = reinterpret_cast<float*>(sid + NS);  // [EF] beam distances
-  int* bi = reinterpret_cast<int*>(bd + EF);    // [EF] beam ids
-  float* cd = reinterpret_cast<float*>(bi + EF);  // [topt] extracted candidates
-  int* ci = reinterpret_cast<int*>(cd + topt);  // [topt]
-  int* sel = ci + topt;                         // [E] selected nodes
-  int* ctl = sel + E;                           // [1] stop flag
-  float* red = reinterpret_cast<float*>(ctl + 1);  // [WARPS] |q|^2 partials
-  unsigned char* bx = reinterpret_cast<unsigned char*>(red + WARPS);  // [EF]
-  unsigned char* dup = bx + EF;                 // [topt]
+                                           int D, int RS, int Rt, int EF, int ef, int max_iters, int E,
+                                           int topt, int sentinel, int nslot_req, int slot_req) {
+  using B_ = Blk<T>;
+  using Acc = typename B_::Acc;
+  constexpr int PER16 = B_::PER16, LPR = B_::LPR, GROUPS = THREADS / LPR, UNROLL = B_::UNROLL;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Plan P = make_plan(B_::ELT, B_::QBYTES, D, RS, Rt, EF, E, nslot_req, slot_req);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* stage = smem + HEADER;
+  float* an = reinterpret_cast<float*>(smem + P.aux_n);  // [E][Rt] norms of the selected nodes' rows
+  int* ai = reinterpret_cast<int*>(smem + P.aux_i);      // [E][Rt] their ids
+  float* sd = reinterpret_cast<float*>(smem + P.sd);     // [E][RS] scored distances
+  unsigned char* qs = smem + P.qs;                       // [D] the query as the scorer reads it
+  float* bd = reinterpret_cast<float*>(smem + P.bd);     // [EF] beam distances
+  int* bi = reinterpret_cast<int*>(smem + P.bi);         // [EF] beam ids
+  int* bs = reinterpret_cast<int*>(smem + P.bs);         // [EF] the ids at a node's turn
+  unsigned char* bx = smem + P.bx;                       // [EF] expanded flags
+  int* sel = reinterpret_cast<int*>(smem + P.ctl);       // [E] selected nodes
+  int* rl = sel + E;                                     // [E] selections with a real node, in order
+  int* ctl = rl + E;                                     // [2] stop flag, real selections
+  float* red = reinterpret_cast<float*>(ctl + 2);        // [QN_LANES / 32] |q|^2 partials
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int grp = tid / LPR, gl = tid % LPR;
+  const int rb = D * B_::ELT;
+  const unsigned aux_bytes = 8u * Rt;  // a node's norm and id rows
 
-  float part = 0.f;
-  for (int i = tid; i < D; i += THREADS) {
-    const float v = q[(size_t)b * D + i];
-    part = fmaf(v, v, part);
-    Blk<T>::stage(qs, i, v);
+  if (tid == 0) {
+    for (int s = 0; s < P.nslot; ++s) barrier_init(&bars[s]);
+    fence_barrier_init();
   }
+  for (int i = tid; i < D; i += THREADS) B_::stage(qs, i, q[(size_t)b * D + i]);
+  // |q|^2 in one fixed order: lane v of QN_LANES sums elements v, v + QN_LANES, ...,
+  // each 32 of them fold by a butterfly, then the folds add in order
+  for (int vw = warp; vw < QN_LANES / 32; vw += WARPS) {
+    float part = 0.f;
+    for (int i = vw * 32 + lane; i < D; i += QN_LANES) {
+      const float v = q[(size_t)b * D + i];
+      part = fmaf(v, v, part);
+    }
 #pragma unroll
-  for (int off = 16; off; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
-  if (lane == 0) red[warp] = part;
+    for (int off = 16; off; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
+    if (lane == 0) red[vw] = part;
+  }
   for (int j = tid; j < EF; j += THREADS) {
     bd[j] = fmaxf(bd0[(size_t)b * EF + j], 0.f);
     bi[j] = bi0[(size_t)b * EF + j];
@@ -205,129 +436,132 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
   __syncthreads();
   float qn = 0.f;
 #pragma unroll
-  for (int w = 0; w < WARPS; ++w) qn += red[w];
+  for (int w = 0; w < QN_LANES / 32; ++w) qn += red[w];
+  // this lane's query fragment for the first 128 columns
+  const bool has_frag = gl * PER16 < D;
+  const typename B_::Frag qf = has_frag ? B_::frag(qs, gl * PER16) : typename B_::Frag{};
 
+  // chunk k of an iteration: rows [c * cr, ...) of the (k / nc)-th real selection
+  auto chunk_src = [&](int k, unsigned& bytes) -> const unsigned char* {
+    const int c = k % P.nc;
+    const int node = sel[rl[k / P.nc]];
+    const int rows = min(P.cr, RS - c * P.cr);
+    bytes = (unsigned)(rows * rb);
+    return reinterpret_cast<const unsigned char*>(packed) + ((size_t)node * RS + (size_t)c * P.cr) * rb;
+  };
+
+  unsigned kc = 0;  // chunks consumed so far, over all iterations: slot kc % nslot, parity (kc / nslot) & 1
   int it = 0, ncomp = 0;
+  uint32_t wsel = NONE;  // warp 0: orderable bits of the live worst at this iteration's selection
   while (it < max_iters) {
-    // ---- selection (warp 0) ----
+    // ---- selection (warp 0), and the copies it names ----
     if (warp == 0) {
-      const DL worst = worst_live(bd, ef, lane);
+      uint32_t wl;
+      live_worst(bd, ef, lane, wsel, wl);
+      const float wd = from_orderable(wsel);
       bool stop = false;
+      int nreal = 0;
       for (int e = 0; e < E; ++e) {
-        const DL m = best_unexpanded(bd, bx, ef, lane);
-        const bool fin = m.d < FINTH;
-        if (e == 0) stop = (m.d > worst.d) || !fin;
-        const int s = (fin && !stop) ? bi[m.l] : sentinel;
-        __syncwarp();
+        uint32_t h = NONE, l = NONE;
+        for (int j = lane; j < ef; j += 32) {
+          if (bx[j]) continue;
+          const uint32_t k = orderable(bd[j]);
+          if (k < h) {  // j ascends: ties keep the smaller lane
+            h = k;
+            l = (uint32_t)j;
+          }
+        }
+        uint32_t mh, ml;
+        warp_argmin(h, l, mh, ml);
+        const bool fin = mh != NONE && from_orderable(mh) < FINTH;
+        if (e == 0) stop = !fin || from_orderable(mh) > wd;
+        const int s = (fin && !stop) ? bi[ml] : sentinel;
+        if (fin && (int)(ml & 31) == lane) bx[ml] = 1;
         if (lane == 0) {
           sel[e] = s;
-          if (fin) bx[m.l] = 1;
+          if (s != sentinel) rl[nreal] = e;
         }
+        nreal += s != sentinel;
         __syncwarp();
       }
-      if (lane == 0) ctl[0] = stop ? 1 : 0;
+      if (lane == 0) {
+        ctl[0] = stop;
+        ctl[1] = nreal;
+        if (!stop) {
+          ncomp += nreal * RS;
+          // the iteration's first chunks, and every selected node's aux rows
+          // on the first chunk's barrier; sel / rl are this thread's own writes
+          fence_proxy_async();
+          const int nch = nreal * P.nc;
+          for (int k = 0; k < P.nslot && k < nch; ++k) {
+            uint64_t* bar = &bars[(kc + k) % P.nslot];
+            unsigned bytes;
+            const unsigned char* src = chunk_src(k, bytes);
+            expect_bytes(bar, bytes + (k == 0 ? aux_bytes * nreal : 0u));
+            if (k == 0)
+              for (int r = 0; r < nreal; ++r) {
+                const int e = rl[r];
+                const size_t arow = (size_t)sel[e] * Rt;
+                bulk_copy(an + e * Rt, pnorms + arow, 4 * Rt, bar);
+                bulk_copy(ai + e * Rt, pids + arow, 4 * Rt, bar);
+              }
+            bulk_copy(stage + ((kc + k) % P.nslot) * P.slot, src, bytes, bar);
+          }
+        }
+      }
     }
     __syncthreads();
     ++it;
     if (ctl[0]) break;
-    for (int e = 0; e < E; ++e) ncomp += (sel[e] != sentinel) ? RS : 0;
+    const int nreal = ctl[1];
 
-    // ---- scoring (all warps): one packed row per lane group at a time ----
-    const int per_g = NS / GROUPS;  // NS is a multiple of GROUPS
-    for (int i0 = 0; i0 < per_g; i0 += UNROLL) {
-      uint4 raw[UNROLL];
-      int node[UNROLL], row[UNROLL];
+    // ---- scoring (all warps), chunk by chunk from the ring ----
+    const int nch = nreal * P.nc;  // the iteration's chunks
+    for (int k = 0; k < nch; ++k, ++kc) {
+      const int slot = kc % P.nslot;
+      barrier_wait(&bars[slot], (kc / P.nslot) & 1);
+      __syncthreads();
+      const int e = rl[k / P.nc], r0 = (k % P.nc) * P.cr;
+      const int rows = min(P.cr, RS - r0);
+      const unsigned char* st = stage + slot * P.slot;
+      const float* ne = an + e * Rt + r0;
+      float* de = sd + e * RS + r0;
+      for (int base = 0; base < rows; base += GROUPS * UNROLL) {  // the same trip count in every lane
+        Acc acc[UNROLL];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int r = grp + GROUPS * (i0 + u);
-        node[u] = sentinel;
-        row[u] = 0;
-        raw[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (i0 + u < per_g) {
-          const int e = r / RS;
-          row[u] = r - e * RS;
-          node[u] = sel[e];
-          if (node[u] != sentinel && gl * PER16 < D)
-            raw[u] = __ldg(reinterpret_cast<const uint4*>(
-                packed + ((size_t)node[u] * RS + row[u]) * D + gl * PER16));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        float acc = 0.f;
-        if (node[u] != sentinel) {
-          for (int c = gl * PER16; c < D; c += LPR * PER16) {
-            const uint4 v = (c == gl * PER16)
-                                ? raw[u]
-                                : __ldg(reinterpret_cast<const uint4*>(
-                                      packed + ((size_t)node[u] * RS + row[u]) * D + c));
-            acc = Blk<T>::dot(v, qs, c, acc);
+        for (int u = 0; u < UNROLL; ++u) {
+          acc[u] = 0;
+          const int r = base + grp + u * GROUPS;
+          if (r < rows && has_frag) {
+            const unsigned char* row = st + (size_t)r * rb;
+            acc[u] = B_::dot(*reinterpret_cast<const uint4*>(row + gl * 16), qf, acc[u]);
+            for (int c = gl * PER16 + LPR * PER16; c < D; c += LPR * PER16)
+              acc[u] = B_::dot(*reinterpret_cast<const uint4*>(row + c * B_::ELT), B_::frag(qs, c), acc[u]);
           }
         }
 #pragma unroll
-        for (int off = LPR / 2; off; off >>= 1) acc += __shfl_xor_sync(FULL, acc, off);
-        if (gl == 0 && i0 + u < per_g) {
-          const int r = grp + GROUPS * (i0 + u);
-          if (node[u] != sentinel) {
-            const size_t a = (size_t)node[u] * Rt + row[u];
-            sd[r] = fmaxf((pnorms[a] + qn) - 2.f * acc, 0.f);
-            sid[r] = pids[a];
-          } else {
-            sd[r] = INFINITY;
-            sid[r] = sentinel;
-          }
+        for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+          for (int off = LPR / 2; off; off >>= 1) acc[u] += __shfl_xor_sync(FULL, acc[u], off);
+          const int r = base + grp + u * GROUPS;
+          if (gl == 0 && r < rows) de[r] = fmaxf((ne[r] + qn) - 2.f * (float)acc[u], 0.f);
         }
       }
+      __syncthreads();  // the slot is free again, and node e's rows so far are scored
+      if (tid == 0 && k + P.nslot < nch) {
+        uint64_t* bar = &bars[slot];
+        unsigned bytes;
+        const unsigned char* src = chunk_src(k + P.nslot, bytes);
+        fence_proxy_async();
+        expect_bytes(bar, bytes);
+        bulk_copy(stage + slot * P.slot, src, bytes, bar);
+      }
+      // node e's last chunk: warp 0 merges it while the later chunks' copies
+      // are in flight; the other warps go on to the next chunk's wait
+      if (warp == 0 && (k + 1) % P.nc == 0)
+        merge_node(sd + e * RS, ai + e * Rt, bd, bi, bs, bx, from_orderable(wsel), RS, EF, ef, topt, sentinel,
+                   lane);
     }
-    __syncthreads();
-
-    // ---- merge (warp 0): per segment, top-TOPT extraction + insertion ----
-    if (warp == 0) {
-      for (int e = 0; e < E; ++e) {
-        const float* segd = sd + e * RS;
-        const int* segi = sid + e * RS;
-        unsigned taken = 0u;
-        for (int t = 0; t < topt; ++t) {
-          DL v{INFINITY, INT_MAX};
-#pragma unroll
-          for (int s = 0; s < ROWS_PER_LANE; ++s) {
-            const int r = lane + 32 * s;
-            if (r < RS && !((taken >> s) & 1u) && dl_less(segd[r], r, v.d, v.l))
-              v = DL{segd[r], r};
-          }
-          v = warp_min(v);
-          if (v.l != INT_MAX && (v.l & 31) == lane) taken |= 1u << (v.l >> 5);
-          if (lane == 0) {
-            cd[t] = v.d;
-            ci[t] = (v.l == INT_MAX) ? sentinel : segi[v.l];
-          }
-        }
-        __syncwarp();
-        for (int t = 0; t < topt; ++t) {
-          const int c = ci[t];
-          bool hit = false;
-          for (int j = lane; j < EF; j += 32) hit |= (bi[j] == c) && (c != sentinel);
-          const unsigned any = __ballot_sync(FULL, hit);
-          if (lane == 0) dup[t] = any ? 1 : 0;
-        }
-        __syncwarp();
-        DL w = worst_live(bd, ef, lane);
-        for (int t = 0; t < topt; ++t) {
-          if (dup[t] || !(cd[t] < w.d)) continue;
-          __syncwarp();
-          if (lane == 0) {
-            bd[w.l] = cd[t];
-            bi[w.l] = ci[t];
-            bx[w.l] = 0;
-          }
-          __syncwarp();
-          w = worst_live(bd, ef, lane);
-        }
-        __syncwarp();
-      }
-    }
-    // the next selection is warp 0's own work; the other warps wait for it
-    // at the barrier after selection, so no barrier is needed here
   }
   __syncthreads();
   for (int j = tid; j < EF; j += THREADS) {
@@ -341,48 +575,112 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
   }
 }
 
-// Dynamic shared memory of one block (the layout at the top of fused_body).
-int smem_bytes(int D, int RS, int EF, int E, int topt) {
-  const int NS = E * RS;
-  return 4 * (D + 2 * NS + 2 * EF + 2 * topt + E + 1 + WARPS) + EF + topt;
-}
-
 // One named kernel per block type (the build report lists each by name).
-#define FUSED_KERNEL(NAME, T)                                                            \
-  __global__ void __launch_bounds__(THREADS)                                             \
-      NAME(const T* __restrict__ packed, const float* __restrict__ pnorms,               \
-           const int* __restrict__ pids, const float* __restrict__ q,                    \
-           const float* __restrict__ bd0, const int* __restrict__ bi0,                   \
-           int* __restrict__ obi, float* __restrict__ obd, int* __restrict__ oncomp,     \
-           int* __restrict__ oiters, int D, int RS, int Rt, int EF, int ef, int max_iters, \
-           int E, int topt, int sentinel) {                                              \
-    fused_body<T>(packed, pnorms, pids, q, bd0, bi0, obi, obd, oncomp, oiters, D, RS, Rt, EF, \
-                  ef, max_iters, E, topt, sentinel);                                     \
+#define FUSED_KERNEL(NAME, T)                                                                        \
+  __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)                                             \
+      NAME(const T* __restrict__ packed, const float* __restrict__ pnorms,                           \
+           const int* __restrict__ pids, const float* __restrict__ q, const float* __restrict__ bd0, \
+           const int* __restrict__ bi0, int* __restrict__ obi,                                       \
+           float* __restrict__ obd, int* __restrict__ oncomp, int* __restrict__ oiters, int D, int RS, \
+           int Rt, int EF, int ef, int max_iters, int E, int topt, int sentinel, int nslot, int slot) { \
+    fused_body<T>(packed, pnorms, pids, q, bd0, bi0, obi, obd, oncomp, oiters, D, RS, Rt, EF, ef,        \
+                  max_iters, E, topt, sentinel, nslot, slot);                                        \
   }
 FUSED_KERNEL(fused_search_kernel, __nv_bfloat16)
 FUSED_KERNEL(fused_search_s8_kernel, int8_t)
 #undef FUSED_KERNEL
 
 template <typename T>
-int launch(void (*kernel)(const T*, const float*, const int*, const float*, const float*,
-                          const int*, int*, float*, int*, int*, int, int, int, int, int, int,
-                          int, int, int),
-           const void* packed, const void* pnorms, const void* pids, const void* q,
-           const void* bd0, const void* bi0, void* obi, void* obd, void* oncomp, void* oiters,
-           int B, int D, int RS, int Rt, int EF, int ef, int max_iters, int E, int topt,
+using Kernel = void (*)(const T*, const float*, const int*, const float*, const float*, const int*, int*,
+                        float*, int*, int*, int, int, int, int, int, int, int, int, int, int, int);
+
+template <typename T>
+Plan plan_for(int D, int RS, int Rt, int EF, int E, int nslot, int slot) {
+  return make_plan(Blk<T>::ELT, Blk<T>::QBYTES, D, RS, Rt, EF, E, nslot, slot);
+}
+
+constexpr int MAX_DEVICES = 64;
+constexpr int MAX_RESIDENT = 32;  // blocks an SM (H100)
+
+// What a device offers one instance, read once: its SM count, and for n
+// resident blocks an SM the dynamic shared memory each may take.
+struct Occupancy {
+  bool ready;
+  int sms;
+  int nmax;                     // resident blocks an SM with no dynamic shared memory
+  size_t avail[MAX_RESIDENT + 1];  // avail[n]: the most a block may take with n an SM
+  // resident blocks an SM at `smem` bytes a block
+  int resident(int smem) const {
+    int n = nmax;
+    while (n > 0 && avail[n] < (size_t)smem) --n;
+    return n;
+  }
+};
+Occupancy occupancy[MAX_DEVICES][2];
+
+// On the current device, once: let `kernel` take up to SMEM_LIMIT bytes of
+// dynamic shared memory, and read its occupancy table.
+template <typename T>
+cudaError_t prepare(Kernel<T> kernel, int ki, const Occupancy*& occ) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  Occupancy& o = occupancy[dev][ki];
+  occ = &o;
+  if (o.ready) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&o.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o.nmax, kernel, THREADS, 0);
+  if (o.nmax > MAX_RESIDENT) o.nmax = MAX_RESIDENT;
+  for (int n = 1; err == cudaSuccess && n <= o.nmax; ++n)
+    err = cudaOccupancyAvailableDynamicSMemPerBlock(&o.avail[n], kernel, n, THREADS);
+  if (err != cudaSuccess) return err;
+  o.ready = true;
+  return cudaSuccess;
+}
+
+// The ring of a launch of B queries: the first of (E slots of a whole
+// block: the iteration's blocks all in flight), (two 16 KB slots) and (one
+// 16 KB slot) that is deeper than the default and whose resident blocks an
+// SM still hold the whole batch at once; a batch too large for any of them
+// takes the default, one 8 KB slot, which keeps the most queries resident
+// (16 an SM).  A small batch leaves resident slots empty, so a deeper ring
+// a query is free there; a large one is paced by the bytes in flight an
+// SM, which more resident queries raise.  No CUDA call: `occ` was read once.
+template <typename T>
+Plan choose_plan(const Occupancy& occ, int B, int D, int RS, int Rt, int EF, int E) {
+  const Plan p = plan_for<T>(D, RS, Rt, EF, E, 1, DEFAULT_SLOT);
+  const int need = (B + occ.sms - 1) / occ.sms;
+  const int rings[3][2] = {{E < MAX_SLOTS ? E : MAX_SLOTS, RS * D * Blk<T>::ELT}, {2, 16384}, {1, 16384}};
+  for (const auto& r : rings) {
+    const Plan c = plan_for<T>(D, RS, Rt, EF, E, r[0], r[1]);
+    if (c.smem <= SMEM_LIMIT && c.nslot * c.slot > p.nslot * p.slot && occ.resident(c.smem) >= need) return c;
+  }
+  return p;
+}
+
+template <typename T>
+int launch(Kernel<T> kernel, int ki, const void* packed, const void* pnorms, const void* pids, const void* q,
+           const void* bd0, const void* bi0, void* obi, void* obd, void* oncomp,
+           void* oiters, int B, int D, int RS, int Rt, int EF, int ef, int max_iters, int E, int topt,
            int sentinel, void* stream) {
-  if (RS % 16 != 0 || RS > 32 * ROWS_PER_LANE || RS > Rt || ef < 1 || ef > EF || topt < 1 ||
-      topt > RS || E < 1)
+  if (D % (16 / Blk<T>::ELT) != 0 || D < 1 || RS < 1 || RS % 16 != 0 || RS > MAX_RS || RS > Rt || Rt % 4 != 0 ||
+      ef < 1 || ef > EF || topt < 1 || topt > RS || E < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const int smem = smem_bytes(D, RS, EF, E, topt);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const Occupancy* occ = nullptr;
+  const cudaError_t err = prepare<T>(kernel, ki, occ);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)packed, (const float*)pnorms, (const int*)pids, (const float*)q,
-      (const float*)bd0, (const int*)bi0, (int*)obi, (float*)obd, (int*)oncomp, (int*)oiters, D,
-      RS, Rt, EF, ef, max_iters, E, topt, sentinel);
+  const Plan p = choose_plan<T>(*occ, B, D, RS, Rt, EF, E);
+  if (p.smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;  // even the default ring does not fit
+  kernel<<<B, THREADS, p.smem, (cudaStream_t)stream>>>(
+      (const T*)packed, (const float*)pnorms, (const int*)pids, (const float*)q, (const float*)bd0,
+      (const int*)bi0, (int*)obi, (float*)obd, (int*)oncomp, (int*)oiters, D, RS, Rt, EF,
+      ef, max_iters, E, topt, sentinel, p.nslot, p.slot);
   return (int)cudaGetLastError();
 }
 
@@ -390,32 +688,53 @@ int launch(void (*kernel)(const T*, const float*, const int*, const float*, cons
 
 extern "C" {
 
-int expann_fused_search_smem_bytes(int D, int RS, int EF, int E, int topt) {
-  return smem_bytes(D, RS, EF, E, topt);
+// Dynamic shared memory of one block at the default ring (s8: 1 for int8
+// blocks).
+int expann_fused_search_smem_bytes(int s8, int D, int RS, int Rt, int EF, int E) {
+  return s8 ? plan_for<int8_t>(D, RS, Rt, EF, E, 1, DEFAULT_SLOT).smem
+            : plan_for<__nv_bfloat16>(D, RS, Rt, EF, E, 1, DEFAULT_SLOT).smem;
+}
+
+// The ring a launch of B queries takes on the current device, into
+// nslot / slot (bytes), and its resident blocks (queries) an SM, as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives it, into ctas;
+// returns a CUDA error code (0 on success).
+int expann_fused_search_ring(int s8, int B, int D, int RS, int Rt, int EF, int E, int* nslot, int* slot,
+                             int* ctas) {
+  const Occupancy* occ = nullptr;
+  cudaError_t err =
+      s8 ? prepare<int8_t>(fused_search_s8_kernel, 1, occ) : prepare<__nv_bfloat16>(fused_search_kernel, 0, occ);
+  if (err != cudaSuccess) return (int)err;
+  const Plan p = s8 ? choose_plan<int8_t>(*occ, B, D, RS, Rt, EF, E)
+                    : choose_plan<__nv_bfloat16>(*occ, B, D, RS, Rt, EF, E);
+  *nslot = p.nslot;
+  *slot = p.slot;
+  err = s8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fused_search_s8_kernel, THREADS, p.smem)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fused_search_kernel, THREADS, p.smem);
+  return (int)err;
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  The
-// caller guarantees: D % 8 == 0, RS % 16 == 0, RS <= 256, RS <= Rt,
-// 1 <= ef <= EF, 1 <= topt <= RS, E >= 1.
-int expann_fused_search_bf16(const void* packed, const void* pnorms, const void* pids,
-                             const void* q, const void* bd0, const void* bi0, void* obi,
-                             void* obd, void* oncomp, void* oiters, int B, int D, int RS,
-                             int Rt, int EF, int ef, int max_iters, int E, int topt,
-                             int sentinel, void* stream) {
-  if (D % 8 != 0) return (int)cudaErrorInvalidValue;
-  return launch(fused_search_kernel, packed, pnorms, pids, q, bd0, bi0, obi, obd, oncomp,
-                oiters, B, D, RS, Rt, EF, ef, max_iters, E, topt, sentinel, stream);
+// caller guarantees: D % 8 == 0, RS % 16 == 0, RS <= 256, RS <= Rt, Rt % 4 == 0,
+// 1 <= ef <= EF, 1 <= topt <= RS, E >= 1, rows 16-byte aligned, every
+// selected id in [0, sentinel].  The launcher chooses the ring from B
+// (choose_plan).
+int expann_fused_search_bf16(const void* packed, const void* pnorms, const void* pids, const void* q,
+                             const void* bd0, const void* bi0, void* obi, void* obd,
+                             void* oncomp, void* oiters, int B, int D, int RS, int Rt, int EF, int ef,
+                             int max_iters, int E, int topt, int sentinel, void* stream) {
+  return launch<__nv_bfloat16>(fused_search_kernel, 0, packed, pnorms, pids, q, bd0, bi0, obi, obd,
+                               oncomp, oiters, B, D, RS, Rt, EF, ef, max_iters, E, topt, sentinel, stream);
 }
 
 // K1-s8: int8 code blocks and a code-space query (integer-valued f32 in
 // [-127, 127]); the same contract with D % 16 == 0.
-int expann_fused_search_s8(const void* packed, const void* pnorms, const void* pids,
-                           const void* q, const void* bd0, const void* bi0, void* obi, void* obd,
-                           void* oncomp, void* oiters, int B, int D, int RS, int Rt, int EF,
-                           int ef, int max_iters, int E, int topt, int sentinel, void* stream) {
-  if (D % 16 != 0) return (int)cudaErrorInvalidValue;
-  return launch(fused_search_s8_kernel, packed, pnorms, pids, q, bd0, bi0, obi, obd, oncomp,
-                oiters, B, D, RS, Rt, EF, ef, max_iters, E, topt, sentinel, stream);
+int expann_fused_search_s8(const void* packed, const void* pnorms, const void* pids, const void* q,
+                           const void* bd0, const void* bi0, void* obi, void* obd,
+                           void* oncomp, void* oiters, int B, int D, int RS, int Rt, int EF, int ef,
+                           int max_iters, int E, int topt, int sentinel, void* stream) {
+  return launch<int8_t>(fused_search_s8_kernel, 1, packed, pnorms, pids, q, bd0, bi0, obi, obd,
+                        oncomp, oiters, B, D, RS, Rt, EF, ef, max_iters, E, topt, sentinel, stream);
 }
 
 }  // extern "C"

@@ -48,7 +48,8 @@ _SIGNATURES = {
     "expann_fused_search_s8": [_P] * 10 + [_I] * 10 + [_P],
     "expann_flat_topk_smem_bytes": [_I, _I],
     "expann_flat_topk_fixed_smem_bytes": [_I, _I],
-    "expann_fused_search_smem_bytes": [_I] * 5,
+    "expann_fused_search_smem_bytes": [_I] * 6,
+    "expann_fused_search_ring": [_I] * 7 + [_P] * 3,
     "expann_packed_score_bf16": [_P] * 7 + [_I] * 7 + [_P],
     "expann_packed_score_smem_bytes": [_I, _I, _I],
     "expann_smem_optin": [],

@@ -33,7 +33,8 @@ iteration count is returned per query.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,6 +51,20 @@ def topt_for(cand: int, expand: int, rs: int) -> int:
     return max(1, min((cand + e - 1) // e, rs))
 
 
+def ring_for(s8: bool, B: int, D: int, RS: int, Rt: int, EF: int, expand: int) -> Tuple[int, int, int]:
+    """The kernel's shared-memory ring for a launch of B queries on the
+    current CUDA device: ``(slots, bytes a slot, resident queries an SM)``.
+    A batch that fits the card's resident slots with a deeper ring gets it
+    (the iteration's blocks all in flight at B <= 132 on an H100, two 16 KB
+    slots up to ~660 bf16 queries); a larger one the default, one 8 KB
+    slot, 16 queries an SM."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    code = _kernels.library().expann_fused_search_ring(
+        int(s8), B, D, RS, Rt, EF, max(1, expand), *(ctypes.byref(v) for v in out))
+    _kernels.check(code, "fused_search ring")
+    return out[0].value, out[1].value, out[2].value
+
+
 def fused_search_plain(
     packed: torch.Tensor,
     packed_norms: torch.Tensor,
@@ -61,8 +76,12 @@ def fused_search_plain(
     expand: int,
     topt: int,
     max_iters: int,
+    expanded: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the fused traversal, batched over queries."""
+    """Plain PyTorch version of the fused traversal, batched over queries.
+    ``expanded``, an (N+1,) bool tensor, gets every node that some query
+    expands set to True (the blocks the call reads); the results are the
+    same with or without it."""
     B, EF = beam_d0.shape
     _, RS, _ = packed.shape
     sentinel = packed.shape[0] - 1
@@ -106,6 +125,8 @@ def fused_search_plain(
             bx[rows[ok], ml[ok]] = True
             masked[rows, ml] = INF
         ncomp += RS * (sel != sentinel).sum(dim=1, dtype=torch.int32)
+        if expanded is not None:
+            expanded[sel[sel != sentinel].long()] = True
         if bool(done.all()):
             break
 
@@ -143,7 +164,8 @@ def fused_search_cuda(
     max_iters: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the fused traversal kernel (``csrc/fused_search.cu``): K1 on
-    bf16 blocks, K1-s8 on int8 blocks."""
+    bf16 blocks, K1-s8 on int8 blocks, with the shared-memory ring the
+    launcher chooses from B (``ring_for``)."""
     device = packed.device
     q = q.float().contiguous()
     s8 = packed.dtype == torch.int8
@@ -160,8 +182,8 @@ def fused_search_cuda(
     Rt = packed_norms.shape[1]
     B, EF = beam_d0.shape
     E = max(1, expand)
-    if packed_norms.shape != (n1, Rt) or packed_ids.shape != (n1, Rt) or Rt < RS:
-        raise ValueError("packed_norms / packed_ids must be (N+1, R_tile) with R_tile >= RS")
+    if packed_norms.shape != (n1, Rt) or packed_ids.shape != (n1, Rt) or Rt < RS or Rt % 4:
+        raise ValueError("packed_norms / packed_ids must be (N+1, R_tile) with R_tile >= RS, a multiple of 4")
     if q.shape != (B, D) or beam_ids0.shape != (B, EF):
         raise ValueError(f"q {tuple(q.shape)} / beam {tuple(beam_ids0.shape)} do not match ({B}, {D}) / ({B}, {EF})")
     if D % (16 if s8 else 8) or RS % 16 or RS > MAX_RS or not 1 <= ef <= EF or not 1 <= topt <= RS:

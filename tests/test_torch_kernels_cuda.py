@@ -14,8 +14,8 @@ import torch
 from expann_tpu_torch.models.build import BuildConfig, build_index
 from expann_tpu_torch.models.search import query_batch
 from expann_tpu_torch.ops import _kernels
-from expann_tpu_torch.ops.fused import fused_search, fused_search_plain, topt_for
-from expann_tpu_torch.ops.packed import build_packed, build_packed_i8, packed_score, packed_score_plain
+from expann_tpu_torch.ops.fused import fused_search, fused_search_cuda, fused_search_plain, ring_for, topt_for
+from expann_tpu_torch.ops.packed import build_packed, build_packed_i8, pack_blocks, packed_score, packed_score_plain
 from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain
 from expann_tpu_torch.parallel import distbuild
 from expann_tpu_torch.tools import perf_pallas_gather, probe_fused, probe_lanes, probe_step_overhead
@@ -354,6 +354,130 @@ def test_fused_search_s8_identical_to_plain(dev, expand, R, d, EF, ef):
     assert torch.equal(ncomp, pncomp) and torch.equal(iters, piters)
     real = dist[ids < n]
     assert bool((real == torch.round(real)).all())
+
+
+def _int_layout(dev, s8, n, R, d, seed, tie=False):
+    """A packed layout over integer-valued rows (bf16: entries in [-3, 3];
+    s8: codes in [-20, 20]), so every distance is an exact integer in both
+    the kernel and the plain version and only the tie rules decide; every
+    seventh node's last quarter of neighbours is the sentinel.  ``tie``:
+    every row is the same, so all of a node's real neighbours tie."""
+    rng = np.random.default_rng(seed)
+    lim = 20 if s8 else 3
+    x = rng.integers(-lim, lim + 1, size=(n, d)).astype(np.float32)
+    if tie:
+        x[:] = x[0]
+    rows = torch.from_numpy(np.concatenate([x, np.zeros((1, d), np.float32)])).to(dev)
+    norms = (rows * rows).sum(1)
+    norms[n] = float("inf")
+    adj = np.stack([rng.choice(n, size=R, replace=False) for _ in range(n)] + [np.full(R, n)]).astype(np.int32)
+    adj[::7, R - R // 4 :] = n
+    adj = torch.from_numpy(adj).to(dev)
+    if s8:
+        packed, pn, pi = pack_blocks(rows.to(torch.int8), norms, adj, 32)
+    else:
+        packed, pn, pi = pack_blocks(rows, norms, adj, 16, torch.bfloat16)
+    return packed, pn, pi, rows, rng
+
+
+# (B, E, cand, R, EF, ef, beams, tie): B=1 and an odd B; E 1 / 2 / 4; topt
+# (= ceil(cand / E), at most RS) 1, 4 and RS; RS 16 (s8: 32), 128 and 256;
+# ef = EF; seed beams of sentinels only, or half of them so (those queries
+# stop at their first iteration, the others run on); all-tie blocks
+FUSED_EDGES = [
+    (1, 2, 8, 120, 128, 120, "seeded", False),
+    (37, 1, 1, 16, 128, 64, "seeded", False),
+    (37, 4, 16, 120, 128, 128, "seeded", False),
+    (37, 2, 512, 16, 64, 48, "seeded", False),
+    (37, 2, 8, 250, 256, 200, "seeded", False),
+    (37, 2, 8, 120, 128, 120, "sentinels", False),
+    (37, 2, 8, 120, 128, 100, "half_sentinels", False),
+    (37, 2, 8, 120, 128, 120, "seeded", True),
+    (37, 1, 256, 16, 64, 64, "seeded", True),
+]
+
+
+@pytest.mark.parametrize("s8", [False, True])
+@pytest.mark.parametrize("B,E,cand,R,EF,ef,beams,tie", FUSED_EDGES)
+def test_fused_search_edges_identical_to_plain(dev, B, E, cand, R, EF, ef, beams, tie, s8):
+    """K1 and K1-s8 against the plain version on integer-valued layouts,
+    where both compute the same exact distances, so beams, distances,
+    distance counts and iteration counts must be identical."""
+    n, d = 1500, 128
+    packed, pn, pi, rows, rng = _int_layout(dev, s8, n, R, d, seed=R + E + cand, tie=tie)
+    lim = 20 if s8 else 3
+    q = torch.from_numpy(rng.integers(-lim, lim + 1, size=(B, d)).astype(np.float32)).to(dev)
+    bd0 = torch.full((B, EF), float("inf"), device=dev)
+    bi0 = torch.full((B, EF), n, dtype=torch.int32, device=dev)
+    if beams != "sentinels":
+        seeds = torch.from_numpy(rng.integers(0, n, size=(B, 4)).astype(np.int32)).to(dev)
+        bi0[:, 3 : 3 + 4] = seeds
+        bd0[:, 3 : 3 + 4] = ((q[:, None, :] - rows[seeds.long()]) ** 2).sum(-1)
+        if beams == "half_sentinels":
+            bd0[::2], bi0[::2] = float("inf"), n
+    name = "fused_search_s8" if s8 else "fused_search"
+    before = _kernels.launches[name]
+    ids, dist, ncomp, iters = fused_search(packed, pn, pi, q, bd0, bi0, ef, expand=E, cand=cand)
+    assert _kernels.launches[name] == before + 1
+    topt = topt_for(cand, E, packed.shape[1])
+    pids, pdist, pncomp, piters = fused_search_plain(packed, pn, pi, q, bd0, bi0, ef, E, topt, 8 * ef + 16)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, pids), int((ids != pids).any(1).sum())
+    assert torch.equal(dist, pdist)
+    assert torch.equal(ncomp, pncomp) and torch.equal(iters, piters)
+    if beams == "sentinels":
+        assert bool((iters == 1).all()) and not bool(ncomp.any()) and bool((ids == n).all())
+    if beams == "half_sentinels":
+        assert bool((iters[::2] == 1).all()) and int(iters[1::2].min()) >= 10
+
+
+@pytest.mark.parametrize("s8,R,d", [(False, 120, 128), (True, 120, 128), (False, 250, 128), (True, 250, 128),
+                                     (False, 120, 112), (True, 120, 112)])
+def test_fused_search_rings_identical_to_plain(dev, s8, R, d):
+    """Every shared-memory ring the launcher takes, reached through B (the
+    largest batch of a sweep that takes it): the iteration's blocks all in
+    flight, two 16 KB slots, one 16 KB slot and the default 8 KB slot; a
+    block over several chunks, and at d = 112 (224 / 112 B rows) chunks
+    cut short by the block's end.  Integer-valued layouts: identical to
+    the plain version."""
+    n, E, cand, ef = 1500, 2, 8, 120
+    packed, pn, pi, rows, rng = _int_layout(dev, s8, n, R, d, seed=R + d)
+    RS, Rt = packed.shape[1], pn.shape[1]
+    EF = 256 if R > 128 else 128
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    largest = {}
+    for B in [1] + [k * sms for k in (1, 2, 3, 4, 6, 8, 10, 12, 16, 20)]:
+        largest[ring_for(s8, B, d, RS, Rt, EF, E)[:2]] = B
+    assert len(largest) >= 3, largest
+    assert (1, 8192 // (d * (1 if s8 else 2)) * d * (1 if s8 else 2)) in largest, largest
+    lim = 20 if s8 else 3
+    topt = topt_for(cand, E, RS)
+    for B in largest.values():
+        q = torch.from_numpy(rng.integers(-lim, lim + 1, size=(B, d)).astype(np.float32)).to(dev)
+        bd0 = torch.full((B, EF), float("inf"), device=dev)
+        bi0 = torch.full((B, EF), n, dtype=torch.int32, device=dev)
+        seeds = torch.from_numpy(rng.integers(0, n, size=(B, 4)).astype(np.int32)).to(dev)
+        bi0[:, :4] = seeds
+        bd0[:, :4] = ((q[:, None, :] - rows[seeds.long()]) ** 2).sum(-1)
+        got = fused_search_cuda(packed, pn, pi, q, bd0, bi0, ef, E, topt, 8 * ef + 16)
+        ref = fused_search_plain(packed, pn, pi, q, bd0, bi0, ef, E, topt, 8 * ef + 16)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), B
+
+
+def test_fused_search_ring_follows_the_batch(dev):
+    """The launcher's ring: the iteration's blocks all in flight for a
+    batch of one query an SM, two 16 KB slots at four an SM, the default
+    8 KB slot (16 resident queries an SM) for a batch the card cannot hold
+    at once; each choice keeps the whole batch resident where it can."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for s8, block in ((False, 128 * 128 * 2), (True, 128 * 128)):
+        assert ring_for(s8, 1, 128, 128, 128, 128, 2)[:2] == (2, block)
+        for B in (1, sms, 4 * sms, 8 * sms, 16384):
+            nslot, slot, ctas = ring_for(s8, B, 128, 128, 128, 128, 2)
+            assert ctas * sms >= B or (nslot, slot, ctas) == (1, 8192, 16)
+        assert ring_for(s8, 16384, 128, 128, 128, 128, 2) == (1, 8192, 16)
 
 
 def _assert_packed_matches_plain(packed, pn, pi, sel, q, topt, exact=False):
