@@ -4,12 +4,13 @@
 Phases, one line each:
   1. device        the card, as torch and nvidia-smi name it;
   2. build         nvcc builds the kernels of expann_tpu_torch/csrc for sm_90a
-                   (registers and spills from ptxas, the most of any template
-                   instance, shared memory per launch, and the traversal
-                   kernels' resident queries per SM at the canonical widths;
-                   no flat top-k kernel, K2, K2-s8, K3 or K3-s8, not the block
-                   scorer K4 and not the traversal kernels K1 and K1-s8 may
-                   spill);
+                   (registers, spills and static shared memory from ptxas,
+                   the most of any template instance, dynamic shared memory
+                   per launch, and the traversal kernels' resident queries
+                   per SM at the canonical widths; no flat top-k kernel, K2,
+                   K2-s8, K3 or K3-s8, not the block scorer K4, not the
+                   traversal kernels K1 and K1-s8 and not the probes P1 and
+                   P3 may spill);
   3. flat_topk     the count-mode flat top-k kernel (K2) against its plain
                    version, random bf16 corpus n=56000, d=128, 4096 queries,
                    k=10; flat_fixed: the fixed-pass kernel (K3) the same way
@@ -71,20 +72,28 @@ Phases, one line each:
                    0 just before a path and read just after;
  14. probe_fused   P1 (expann_tpu_torch/tools/probe_fused.py) against its
                    plain version: the bulk copy by an in-kernel index and the
-                   data-dependent loop, identical; its time beside one
-                   indexing call's copy of the same entry (tab[entry]);
+                   data-dependent loop, identical, at the tool's inputs and
+                   at the card tests' cases (8 seeds, ties in row 0, the
+                   minimum in column 127, the table's last entry, loop caps
+                   0 and 1); its time beside one indexing call's copy of the
+                   same entry (tab[entry]);
  15. probe_gather  P2 against its plain version on all 33001 rows at every
                    ring of the sweep (R 16-128 x NBUF 2, 4, 8) on its 2 GiB
                    tables, the refusal of the R=128, NBUF=8 ring, and the
                    time at R=128, NBUF=4;
  16. probe_step    K1 on P3's companion layout against its plain version at
                    both iteration caps (1024 queries); P3 against its plain
-                   version at every feature;
+                   version at every feature at B = 8, 1000 and 8192 (the
+                   tool's cluster size: padded clusters at 8 and 1000), and
+                   its time with the cluster size, the L2 bytes a call reads
+                   and the clusters the card holds at once;
  17. probe_lanes   P4 against its plain version at every mode;
      then the probes path, counts reset just before it: the tools' sweeps
      (P1 once; P2's block-gather GB/s by R x NBUF and the library chain's;
-     P3's µs per step by feature and K1's ms at 24 and 96 iterations with
-     its slope; P4's ns per step by mode from ITERS 256 and 512), with the
+     P3's µs per step by feature, `dma` at every cluster size, the fixed
+     cost of a step alone on an SM (B=8, cluster 1, with and without
+     `dma`), and K1's ms at 24 and 96 iterations with its slope; P4's ns
+     per step by mode from ITERS 256 and 512), with the
      probe kernels' times beside their plain versions and bounds;
  18. trace         tools/perf_trace's profile of one warm call on each serving
                    engine, each in a fresh process of perf_trace on the
@@ -278,21 +287,25 @@ PROBE_G = 33001
 
 
 def ptxas_summary(report: str) -> dict:
-    """Registers and spill bytes per kernel from the ptxas report; a kernel
-    built in several template instances (K3 and K3-s8: one per list size)
-    reports its count of instances and the most registers and spill bytes
-    of any."""
+    """Registers, spill bytes and static shared memory per kernel from the
+    ptxas report; a kernel built in several template instances (K3 and
+    K3-s8: one per list size; P3: one per feature set) reports its count of
+    instances and the most of each of any."""
     out, current = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)' for '(\w+)'", line)
         if m:
             current = next((k for k in KERNEL_NAMES if re.search(rf"\d{k}", m.group(1))), None)
             if current:
-                info = out.setdefault(current, {"arch": m.group(2), "instances": 0, "registers": 0, "spill_bytes": 0})
+                info = out.setdefault(current, {"arch": m.group(2), "instances": 0, "registers": 0, "spill_bytes": 0,
+                                                "static_smem_bytes": 0})
                 info["instances"] += 1
         elif current and "registers" in line:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             out[current]["registers"] = max(out[current]["registers"], regs)
+            smem = re.search(r"(\d+) bytes smem", line)
+            if smem:
+                out[current]["static_smem_bytes"] = max(out[current]["static_smem_bytes"], int(smem.group(1)))
         elif current and "spill stores" in line:
             spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
             out[current]["spill_bytes"] = max(out[current]["spill_bytes"], spills)
@@ -670,6 +683,18 @@ def probe_phases(torch, dev, card: str) -> dict:
     phase("probe_fused", copied_entry=int(torch.argmin(x[0])) % 64, loop_count=int(pw[0, 0]),
           identical=bool(torch.equal(o, po) and torch.equal(w, pw)))
     check(torch.equal(o, po) and torch.equal(w, pw), f"probe_fused differs from its plain version ({err['probe_fused']})")
+    # the cases of the card tests: seeds, ties, column 127, the table's last
+    # entry, loop caps 0 and 1
+    for kind, seed in pf.CASES:
+        ct, cx, cap, centry = pf.case_inputs(dev, kind, seed)
+        co, cw = pf.probe_fused_cuda(ct, cx, cap)
+        cpo, cpw = pf.probe_fused_plain(ct, cx, cap)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(co, cpo) and torch.equal(cw, cpw)
+                    and (centry is None or torch.equal(co, ct[centry])))
+        err["probe_fused"] = max(err["probe_fused"], float((co - cpo).abs().max()), float((cw - cpw).abs().max()))
+        check(same, f"probe_fused case {kind}-{seed} differs from its plain version")
+    phase("probe_fused", cases=len(pf.CASES), identical=True)
     ms = event_ms(lambda: pf.probe_fused_cuda(tab, x), reps=200)
     plain_ms = event_ms(lambda: pf.probe_fused_plain(tab, x), reps=5)
     # the library's copy of the same entry: one indexing call by a device index
@@ -752,21 +777,41 @@ def probe_phases(torch, dev, card: str) -> dict:
     # ---- 16. P3 -------------------------------------------------------------
     qs, bd0, blocks = ps.inputs(dev)
     err["step_overhead"] = 0.0
-    for feat in ps.FEATURES:
-        got = ps.step_overhead_cuda(qs, bd0, blocks, feat)
-        ref = ps.step_overhead_plain(qs, bd0, blocks, feat)
-        torch.cuda.synchronize()
-        e = float((got - ref).abs().max())
-        err["step_overhead"] = max(err["step_overhead"], e)
-        phase("probe_step", feature=feat or "base", B=ps.B, iters=ps.ITERS, max_abs_err=f"{e:.3e}",
-              identical=bool(torch.equal(got, ref)))
-        check(bool(torch.allclose(got, ref, rtol=1e-6, atol=1e-6)), f"step_overhead {feat!r} differs by {e}")
+    # every feature at one tile (B=8: cluster - 1 padded blocks), 125 tiles
+    # (no multiple of the cluster) and the tool's 1024, at the tool's
+    # cluster: identical, as the kernel rounds every multiply and add as
+    # the plain version does
+    for b in (8, 1000, ps.B):
+        for feat in ps.FEATURES:
+            got = ps.step_overhead_cuda(qs[:b], bd0[:b], blocks, feat)
+            ref = ps.step_overhead_plain(qs[:b], bd0[:b], blocks, feat)
+            torch.cuda.synchronize()
+            e = float((got - ref).abs().max())
+            err["step_overhead"] = max(err["step_overhead"], e)
+            phase("probe_step", feature=feat or "base", B=b, iters=ps.ITERS, cluster=ps.CLUSTER,
+                  max_abs_err=f"{e:.3e}", identical=bool(torch.equal(got, ref)))
+            check(bool(torch.equal(got, ref)), f"step_overhead {feat!r} B={b} is not identical (differs by {e})")
+        # on a beam of ~1e-7 each copied row (times 1e-9) moves every value
+        # by many ulps, so a wrong, early or missing copy shows; one-block
+        # clusters (plain copies) and the tool's (multicasts)
+        small = bd0[:b] * 1e-7
+        ref = ps.step_overhead_plain(qs[:b], small, blocks, "dma")
+        moved = float((ref != ps.step_overhead_plain(qs[:b], small, blocks, "")).float().mean())
+        check(moved > 0.99, f"step_overhead: the copies move only {moved} of the small beam's values")
+        for c in (1, ps.CLUSTER):
+            got = ps.step_overhead_cuda(qs[:b], small, blocks, "dma", ps.ITERS, c)
+            torch.cuda.synchronize()
+            e = float((got - ref).abs().max())
+            phase("probe_step", feature="dma", beam="small", B=b, cluster=c, moved=f"{moved:.4f}",
+                  max_abs_err=f"{e:.3e}", identical=bool(torch.equal(got, ref)))
+            check(bool(torch.equal(got, ref)), f"step_overhead dma, small beam, B={b}, cluster {c}: differs by {e}")
     ms = event_ms(lambda: ps.step_overhead_cuda(qs, bd0, blocks, "dma"), reps=5)
     plain_ms = event_ms(lambda: ps.step_overhead_plain(qs, bd0, blocks, "dma"), reps=2)
     sb = bound(ps.step_bytes("dma"), 3.0 * ps.B * ps.EF * ps.ITERS, "f32")
     times["step_overhead"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=sb[0], bound_by=sb[1])
     phase("probe_step", feature="dma", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{sb[0]:.5f}",
-          bound_by=sb[1], card=card)
+          bound_by=sb[1], cluster=ps.CLUSTER, l2_bytes=ps.l2_bytes(ps.B, ps.ITERS, ps.CLUSTER),
+          clusters_at_once=ps.active_clusters(ps.RS, True, ps.CLUSTER, dev), card=card)
     del qs, bd0, blocks
 
     # ---- 17. P4 -------------------------------------------------------------
@@ -801,6 +846,8 @@ def probe_phases(torch, dev, card: str) -> dict:
     p1 = pf.main(dev)
     gather = pg.sweep(dev, log=lambda line: None)
     steps = [ps.run(feat, dev) for feat in ps.FEATURES]
+    sweep = [ps.run("dma", dev, c) for c in ps.cluster_sizes(ps.B // ps.T)]
+    alone = [ps.run(feat, dev, 1, ps.T) for feat in ("", "dma")]  # one tile alone on an SM
     fused = ps.run_fused(dev)
     lanes = [pl.run(mode, dev) for mode in pl.MODES]
     launches = dict(_kernels.launches)
@@ -815,9 +862,12 @@ def probe_phases(torch, dev, card: str) -> dict:
     check(sorted((r["R"], r["nbuf"], r["launchable"]) for r in gather)
           == sorted((R, nb, (R, nb) != (128, 8)) for R in pg.R_SWEEP for nb in pg.NBUF_SWEEP),
           "the sweep did not run every ring but R=128, NBUF=8, or did not refuse that one")
-    for r in steps:
-        phase("probe_step", feature=r["feat"] or "base", B=ps.B, iters=ps.ITERS, ms=f"{r['ms']:.4f}",
-              us_per_tile=f"{r['us_per_tile']:.4f}", ns_per_step=f"{r['ns_per_step']:.2f}", card=card)
+    for r in steps + sweep + alone:
+        phase("probe_step", feature=r["feat"] or "base", B=r["B"], iters=ps.ITERS, cluster=r["cluster"],
+              ms=f"{r['ms']:.4f}", us_per_tile=f"{r['us_per_tile']:.4f}", ns_per_step=f"{r['ns_per_step']:.2f}",
+              l2_bytes=r["l2_bytes"], card=card)
+    phase("probe_step", fixed_step_ns=f"{alone[0]['ns_per_step']:.2f}",
+          fixed_step_dma_ns=f"{alone[1]['ns_per_step']:.2f}", B=ps.T, cluster=1, card=card)
     for r in fused:
         phase("probe_step", fused_max_iters=r["max_iters"], B=ps.B, ef=120, expand=4, cand=32, ms=f"{r['ms']:.3f}",
               iters_mean=f"{r['iters_mean']:.2f}", iters_max=r["iters_max"], card=card)
@@ -1880,11 +1930,13 @@ def main() -> None:
     check(all(v >= 1 for v in ctas.values()), f"a traversal kernel cannot be resident: {ctas}")
     for kname, info in sorted(ptx.items()):
         phase("build", kernel=kname, arch=info["arch"], instances=info["instances"], registers=info["registers"],
-              spill_bytes=info["spill_bytes"], dynamic_smem_bytes=smem[kname],
+              spill_bytes=info["spill_bytes"], static_smem_bytes=info["static_smem_bytes"],
+              dynamic_smem_bytes=smem[kname],
               **({"ctas_per_sm": ctas[kname]} if kname in ctas else {}))
     phase("build", seconds=f"{build_s:.3f}", source=os.path.join("expann_tpu_torch", "csrc"))
     no_spill = ("flat_topk_kernel", "flat_topk_s8_kernel", "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel",
-                "packed_score_kernel", "fused_search_kernel", "fused_search_s8_kernel")
+                "packed_score_kernel", "fused_search_kernel", "fused_search_s8_kernel", "probe_fused_kernel",
+                "step_overhead_kernel")
     check(all(ptx[name]["spill_bytes"] == 0 for name in no_spill),
           f"a kernel that may not spill spills registers: {[(name, ptx[name]) for name in no_spill]}")
 

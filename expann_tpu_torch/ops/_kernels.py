@@ -56,8 +56,9 @@ _SIGNATURES = {
     "expann_probe_fused": [_P] * 4 + [_I] * 2 + [_P],
     "expann_block_gather": [_P] * 4 + [_I] * 4 + [_P],
     "expann_block_gather_smem_bytes": [_I] * 3,
-    "expann_step_overhead": [_P] * 4 + [_I] * 7 + [_P],
+    "expann_step_overhead": [_P] * 4 + [_I] * 8 + [_P],
     "expann_step_overhead_smem_bytes": [_I],
+    "expann_step_overhead_clusters": [_I] * 3,
     "expann_probe_lanes": [_P] * 2 + [_I] * 3 + [_P],
 }
 

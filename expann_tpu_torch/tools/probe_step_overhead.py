@@ -20,20 +20,38 @@ combined with commas (``"dma,while6"``), add to each step:
 
 The result is ``d + q[tile*T, 0] * 0.0``.  The kernel
 (``step_overhead_kernel`` in ``csrc/probes.cu``) runs one block per tile
-and one warp per row; ``dma`` sends the 32 copies of 32 KB through a ring
-of 4 slots (a block has 227 KB; the TPU scratch was 1 MiB).  The copy
-indices do not depend on the tile, so all tiles read the same <= 768
-blocks (~24 MB), which stay in L2: the ``dma`` reading is an L2 copy cost.
+and one warp per row, in thread-block clusters of ``cluster`` blocks (the
+grid padded to a multiple; a padded block writes no row).  ``dma`` sends
+the 32 copies of 32 KB through a ring of NSLOT slots; the copy indices do
+not depend on the tile, so all tiles read the same <= 768 blocks (~24 MB),
+which stay in L2, and a cluster's blocks share each read: every copy is
+one multicast that lands in every block of the cluster (a plain copy in a
+one-block cluster).  A call therefore
+reads ``l2_bytes`` from L2, once a cluster, while the bound counts the
+distinct blocks once.
 
     python -m expann_tpu_torch.tools.probe_step_overhead
+    python -m expann_tpu_torch.tools.probe_step_overhead --ab
+
+``--ab`` prints JSON lines: ``dma`` at B=8192 for each cluster size (ms a
+call, ns a step by the slope between ITERS and 4 * ITERS, L2 bytes a call,
+clusters resident at once), the fixed cost of a step alone on an SM (B=8,
+one tile, cluster 1, with and without ``dma``), and K1's cost per iteration
+at B=8.  An older checkout's kernel is timed by that checkout's own copy of
+this file: ``PYTHONPATH=<checkout> python <checkout>/expann_tpu_torch/tools/
+probe_step_overhead.py`` (every feature at B=8192).
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import sys
 from typing import Tuple
 
 import torch
 
+import expann_tpu_torch
 from expann_tpu_torch.ops import _kernels
 from expann_tpu_torch.ops.fused import fused_search
 from expann_tpu_torch.utils.profiling import card_name, event_ms
@@ -44,6 +62,11 @@ ITERS = 24
 NODES = 4096  # copy indices are taken mod NODES; layouts hold NODES + 1 blocks
 FEATURES = ("", "scratch", "dma", "while1", "while6", "dma,while6")
 FUSED_ITERS = (24, 96)
+COPIES = T * E  # copies a step
+NSLOT = 3  # the ring's slots (ST_NSLOT in csrc/probes.cu)
+BAR_BYTES = 128  # the ring's barriers, ahead of its slots
+CLUSTER_SWEEP = (1, 2, 4, 8, 16)  # 16: a non-portable cluster size
+CLUSTER = 4  # the cluster size the tool and chip_smoke time
 
 
 def parse_feature(feat: str) -> Tuple[bool, bool, int]:
@@ -77,9 +100,45 @@ def step_overhead_plain(q: torch.Tensor, bd0: torch.Tensor, packed: torch.Tensor
     return d + q[::T, :1].float().repeat_interleave(T, dim=0) * 0.0
 
 
+def ring_bytes(rs: int) -> int:
+    """The ``dma`` (and ``scratch``) footprint of one block: the barriers
+    and NSLOT slots of an (rs, D) bf16 block."""
+    return BAR_BYTES + NSLOT * rs * D * 2
+
+
+def grid_blocks(b: int, cluster: int) -> int:
+    """Blocks a launch of ``b`` rows runs: its b / T tiles padded to a
+    multiple of the cluster size."""
+    tiles = b // T
+    return -(-tiles // cluster) * cluster
+
+
+def cluster_sizes(tiles: int) -> Tuple[int, ...]:
+    """The sweep's cluster sizes for a tile count: those no larger than it
+    (a larger cluster only adds padded blocks)."""
+    return tuple(c for c in CLUSTER_SWEEP if c <= max(1, tiles))
+
+
+def l2_bytes(b: int, iters: int, cluster: int, rs: int = RS) -> int:
+    """Bytes a ``dma`` call reads from L2: every cluster (padded ones
+    included) copies each step's 32 blocks once."""
+    return grid_blocks(b, cluster) // cluster * iters * COPIES * rs * D * 2
+
+
+def active_clusters(rs: int, smem_on: bool, cluster: int, device="cuda") -> int:
+    """Clusters of ``cluster`` blocks the card holds at once (CUDA's
+    occupancy calculator), with or without the ring."""
+    with torch.cuda.device(device):
+        n = _kernels.library().expann_step_overhead_clusters(rs, int(smem_on), cluster)
+    if n < 0:
+        _kernels.check(-n, "step_overhead clusters")
+    return n
+
+
 def step_overhead_cuda(q: torch.Tensor, bd0: torch.Tensor, packed: torch.Tensor, feat: str,
-                       iters: int = ITERS) -> torch.Tensor:
-    """Launch ``step_overhead_kernel`` (one block per T-row tile)."""
+                       iters: int = ITERS, cluster: int = CLUSTER) -> torch.Tensor:
+    """Launch ``step_overhead_kernel`` (one block per T-row tile, clusters
+    of ``cluster`` blocks)."""
     dma, scratch, carry = parse_feature(feat)
     device = bd0.device
     _kernels.require_cuda(q, "q", torch.float32, device)
@@ -91,6 +150,8 @@ def step_overhead_cuda(q: torch.Tensor, bd0: torch.Tensor, packed: torch.Tensor,
                          f"expected (B, {D}), (B, {EF}) with B % {T} == 0, (n, RS, {D})")
     if dma and packed.shape[0] < NODES:
         raise ValueError(f"packed has {packed.shape[0]} blocks; the copies read {NODES}")
+    if cluster not in CLUSTER_SWEEP:
+        raise ValueError(f"cluster {cluster}: expected one of {CLUSTER_SWEEP}")
     lib = _kernels.library()
     rs = packed.shape[1]
     out = torch.empty_like(bd0)
@@ -98,17 +159,19 @@ def step_overhead_cuda(q: torch.Tensor, bd0: torch.Tensor, packed: torch.Tensor,
         if (dma or scratch) and lib.expann_step_overhead_smem_bytes(rs) > lib.expann_smem_optin():
             raise ValueError(f"the scratch for RS={rs} does not fit one block's shared memory")
         code = lib.expann_step_overhead(q.data_ptr(), bd0.data_ptr(), packed.data_ptr(), out.data_ptr(), Bq, rs,
-                                        int(iters), NODES, int(dma), int(scratch), carry, _kernels.stream_ptr(device))
+                                        int(iters), NODES, int(dma), int(scratch), carry, cluster,
+                                        _kernels.stream_ptr(device))
     _kernels.check(code, "step_overhead")
     _kernels.launches["step_overhead"] += 1
     return out
 
 
 def step_overhead(q: torch.Tensor, bd0: torch.Tensor, packed: torch.Tensor, feat: str = "",
-                  iters: int = ITERS) -> torch.Tensor:
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+                  iters: int = ITERS, cluster: int = CLUSTER) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU tensors (which
+    has no clusters: ``cluster`` changes no result)."""
     if bd0.is_cuda:
-        return step_overhead_cuda(q, bd0, packed, feat, iters)
+        return step_overhead_cuda(q, bd0, packed, feat, iters, cluster)
     if bd0.device.type != "cpu":
         raise ValueError(f"step_overhead runs on CUDA or CPU tensors, not {bd0.device}")
     return step_overhead_plain(q, bd0, packed, feat, iters)
@@ -133,14 +196,18 @@ def step_bytes(feat: str) -> int:
     return 2 * B * EF * 4 + (B // T) * 4 + blocks * RS * D * 2
 
 
-def run(feat: str, device="cuda") -> dict:
-    """Time one feature at the tool's shape: ms per call at ITERS (and µs
-    per tile, the TPU tool's unit: its grid steps ran one after another),
-    and ns per step from the slope between ITERS and 4 * ITERS steps (all
-    tiles run at once here, so the slope is one step of the whole grid)."""
+def run(feat: str, device="cuda", cluster: int = CLUSTER, b: int = B) -> dict:
+    """Time one feature at ``b`` rows (the tool's shape by default) in
+    clusters of ``cluster`` blocks: ms per call at ITERS (and µs per tile,
+    the TPU tool's unit: its grid steps ran one after another), and ns per
+    step from the slope between ITERS and 4 * ITERS steps (all tiles run at
+    once here, so the slope is one step of the whole grid)."""
     q, bd0, packed = inputs(device)
-    ms = [event_ms(lambda: step_overhead_cuda(q, bd0, packed, feat, it), reps=5) for it in (ITERS, 4 * ITERS)]
-    return dict(feat=feat, ms=ms[0], us_per_tile=ms[0] * 1e3 / (B // T), ns_per_step=(ms[1] - ms[0]) * 1e6 / (3 * ITERS))
+    q, bd0 = q[:b], bd0[:b]
+    ms = [event_ms(lambda: step_overhead_cuda(q, bd0, packed, feat, it, cluster), reps=5) for it in (ITERS, 4 * ITERS)]
+    return dict(feat=feat, B=b, cluster=cluster, ms=ms[0], us_per_tile=ms[0] * 1e3 / (b // T),
+                ns_per_step=(ms[1] - ms[0]) * 1e6 / (3 * ITERS),
+                l2_bytes=l2_bytes(b, ITERS, cluster) if parse_feature(feat)[0] else 0)
 
 
 def fused_inputs(device, b: int = B):
@@ -163,19 +230,19 @@ def fused_inputs(device, b: int = B):
     return packed, norms, ids, q, bd0, bi0
 
 
-def run_fused(device="cuda") -> list:
-    """K1 at the tool's shape (B=8192, ef=120, expand=4, cand=32) under each
-    iteration cap of FUSED_ITERS: ms per call and the iterations the
-    queries ran."""
-    args = fused_inputs(device)
+def run_fused(device="cuda", b: int = B) -> list:
+    """K1 at the tool's shape (B=8192, or ``b`` queries; ef=120, expand=4,
+    cand=32) under each iteration cap of FUSED_ITERS: ms per call and the
+    iterations the queries ran."""
+    args = fused_inputs(device, b)
     rows = []
     for cap in FUSED_ITERS:
         def call():
             return fused_search(*args, ef=120, expand=4, cand=32, max_iters=cap)
 
-        ms = event_ms(call, reps=3)
+        ms = event_ms(call, reps=3 if b >= 1024 else 20)
         it = call()[3].float()
-        rows.append(dict(max_iters=cap, ms=ms, iters_mean=float(it.mean()), iters_max=int(it.max())))
+        rows.append(dict(B=b, max_iters=cap, ms=ms, iters_mean=float(it.mean()), iters_max=int(it.max())))
     return rows
 
 
@@ -216,7 +283,8 @@ def main(device="cuda") -> dict:
         r = run(feat, device)
         feats.append(r)
         print(f"{feat or 'base':>10s}: {r['ms']:8.4f} ms -> {r['us_per_tile']:7.4f} us/tile, "
-              f"{r['ns_per_step']:8.2f} ns/step (slope {ITERS}->{4 * ITERS})", flush=True)
+              f"{r['ns_per_step']:8.2f} ns/step (slope {ITERS}->{4 * ITERS}), cluster {r['cluster']}, "
+              f"L2 {r['l2_bytes'] / 1e9:.3f} GB", flush=True)
     fused = run_fused(device)
     for r in fused:
         print(f"fused iters<={r['max_iters']}: {r['ms']:8.3f} ms, iterations mean {r['iters_mean']:.1f} "
@@ -225,5 +293,39 @@ def main(device="cuda") -> dict:
     return dict(features=feats, fused=fused)
 
 
+def ab(argv=None) -> list:
+    """The A/B reading (JSON lines): ``dma`` at B=8192 for each cluster
+    size, the fixed cost of a step at B=8 with and without ``dma``, and K1
+    at B=8."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ab", action="store_true")
+    ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_step_overhead --ab times the kernel on an NVIDIA GPU; none is present")
+    dev = torch.device("cuda")
+    base = dict(card=card_name(), package=expann_tpu_torch.__file__)
+    q, bd0, packed = inputs(dev)
+    out = []
+
+    def emit(row):
+        row.update(base)
+        print(json.dumps(row), flush=True)
+        out.append(row)
+
+    for c in cluster_sizes(B // T):
+        got = step_overhead_cuda(q, bd0, packed, "dma", ITERS, c)
+        ref = step_overhead_plain(q, bd0, packed, "dma", ITERS)
+        emit(dict(run("dma", dev, c, B), identical=bool(torch.equal(got, ref)),
+                  clusters_at_once=active_clusters(RS, True, c, dev)))
+    for feat in ("", "dma"):  # one tile alone on an SM
+        emit(dict(run(feat, dev, 1, T), fixed_cost=True))
+    fused = run_fused(dev, T)
+    emit(dict(kernel="fused_search", B=T, rows=fused, ms_per_iteration=fused_slope(fused)))
+    return out
+
+
 if __name__ == "__main__":
-    main()
+    if "--ab" in sys.argv[1:]:
+        ab(sys.argv[1:])
+    else:
+        main()

@@ -673,18 +673,23 @@ def test_query_batch_matches_cpu(dev, use_packed):
     assert abs(na - nb) <= 0.01 * nb
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_probe_fused_identical_to_plain(dev, seed):
+@pytest.mark.parametrize("kind,seed", probe_fused.CASES, ids=[f"{k}-{s}" for k, s in probe_fused.CASES])
+def test_probe_fused_identical_to_plain(dev, kind, seed):
     """P1: the bulk copy by an in-kernel index and the data-dependent loop
-    give exactly the plain version's arrays."""
-    tab, x = probe_fused.inputs(dev, seed)
-    x[0, :8] += 5.0 * seed
+    give exactly the plain version's arrays (``probe_fused.CASES``: 8
+    seeds, ties in row 0, the minimum in column 127, an entry in the
+    table's last row, loop caps of 0 and 1)."""
+    tab, x, max_iters, entry = probe_fused.case_inputs(dev, kind, seed)
     before = _kernels.launches["probe_fused"]
-    o, w = probe_fused.probe_fused(tab, x)
+    o, w = probe_fused.probe_fused(tab, x, max_iters)
     assert _kernels.launches["probe_fused"] == before + 1
-    po, pw = probe_fused.probe_fused_plain(tab, x)
+    po, pw = probe_fused.probe_fused_plain(tab, x, max_iters)
     torch.cuda.synchronize()
     assert torch.equal(o, po) and torch.equal(w, pw), (float(w[0, 0]), float(pw[0, 0]))
+    if entry is not None:
+        assert torch.equal(o, tab[entry])
+    if max_iters < probe_fused.MAX_ITERS:
+        assert float(w[0, 0]) == max_iters
 
 
 @pytest.mark.parametrize(
@@ -739,18 +744,82 @@ def test_fused_search_matches_plain_on_probe_layout(dev, max_iters):
     assert int(got[3].max()) <= max_iters
 
 
+@pytest.fixture(scope="module")
+def step_inputs():
+    """P3's inputs at the tool's shape, made once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return probe_step_overhead.inputs(torch.device("cuda"))
+
+
+@pytest.mark.parametrize("cluster", probe_step_overhead.CLUSTER_SWEEP)
+@pytest.mark.parametrize("iters", [0, 1, 24])
+@pytest.mark.parametrize("B", [8, 1000, 8192])
 @pytest.mark.parametrize("feat", probe_step_overhead.FEATURES)
-def test_step_overhead_matches_plain(dev, feat):
-    """P3, every feature, at the tool's shape: rtol = atol = 1e-6 (the
-    kernel rounds every multiply and add as the plain version does)."""
-    q, bd0, packed = probe_step_overhead.inputs(dev)
+def test_step_overhead_matches_plain(dev, step_inputs, feat, B, iters, cluster):
+    """P3, every feature, at B = 8 (one tile: at cluster c > 1 the other
+    c - 1 blocks are padding), 1000 (125 tiles, not a multiple of any c > 1)
+    and 8192, at 0, 1 and 24 steps and every cluster size: rtol = atol =
+    1e-6, and identical (the kernel rounds every multiply and add as the
+    plain version does)."""
+    q, bd0, packed = step_inputs
+    q, bd0 = q[:B], bd0[:B]
     before = _kernels.launches["step_overhead"]
-    got = probe_step_overhead.step_overhead(q, bd0, packed, feat)
+    got = probe_step_overhead.step_overhead(q, bd0, packed, feat, iters, cluster)
     assert _kernels.launches["step_overhead"] == before + 1
-    ref = probe_step_overhead.step_overhead_plain(q, bd0, packed, feat)
+    ref = probe_step_overhead.step_overhead_plain(q, bd0, packed, feat, iters)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("cluster", probe_step_overhead.CLUSTER_SWEEP)
+def test_step_overhead_ring_phases_wrap(dev, step_inputs, cluster):
+    """P3 with ``dma`` at 2 * NSLOT + 1 steps: each step sends 32 copies
+    through the NSLOT-slot ring, so every slot's full and empty barriers
+    complete ~75 phases and flip their parity each time; a wrong parity
+    hangs a wait (NaN after the timeout) or reads a slot early.  Every
+    step's copied row moves the result, so the last step's copy is read."""
+    q, bd0, packed = step_inputs
+    iters = 2 * probe_step_overhead.NSLOT + 1
+    got = probe_step_overhead.step_overhead(q, bd0, packed, "dma", iters, cluster)
+    ref = probe_step_overhead.step_overhead_plain(q, bd0, packed, "dma", iters)
+    short = probe_step_overhead.step_overhead_plain(q, bd0, packed, "dma", iters - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert not torch.equal(got, short)
+
+
+@pytest.mark.parametrize("cluster", probe_step_overhead.CLUSTER_SWEEP)
+@pytest.mark.parametrize("B", [8, 1000, 8192])
+def test_step_overhead_copies_are_visible(dev, step_inputs, B, cluster):
+    """P3 with ``dma`` on a beam of ~1e-7: each step's copied row (times
+    1e-9) then moves every value by many ulps, so a copy of the wrong
+    block, a slot read before its copy lands or a copy that never happens
+    changes the result.  Identical to the plain version, which differs
+    from the run without copies in nearly every value."""
+    q, bd0, packed = step_inputs
+    q, bd0 = q[:B], bd0[:B] * 1e-7
+    got = probe_step_overhead.step_overhead(q, bd0, packed, "dma", probe_step_overhead.ITERS, cluster)
+    ref = probe_step_overhead.step_overhead_plain(q, bd0, packed, "dma")
+    bare = probe_step_overhead.step_overhead_plain(q, bd0, packed, "")
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert float((ref != bare).float().mean()) > 0.99
+
+
+def test_step_overhead_footprint_and_clusters(dev):
+    """The ``dma`` footprint is the ring alone and the Python mirror of it
+    is the kernel's; at least two tiles reside on an SM (CUDA's occupancy
+    calculator: two clusters of one block an SM); the card holds clusters
+    of every size of the sweep."""
+    lib = _kernels.library()
+    assert lib.expann_step_overhead_smem_bytes(128) == probe_step_overhead.ring_bytes(128)
+    for c in probe_step_overhead.CLUSTER_SWEEP:
+        assert probe_step_overhead.active_clusters(128, True, c, dev) >= 1, c
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert probe_step_overhead.active_clusters(128, True, 1, dev) >= 2 * sms
 
 
 @pytest.mark.parametrize("mode", probe_lanes.MODES)

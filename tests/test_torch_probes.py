@@ -68,6 +68,26 @@ def test_probe_fused_matches_tpu_kernel(interpret):
         np.testing.assert_array_equal(w.numpy(), np.asarray(wout))
 
 
+@pytest.mark.parametrize("kind,seed", [("tie", 8), ("lane127", 9)])
+def test_probe_fused_cases_match_tpu_kernel(interpret, kind, seed):
+    """P1's tied and column-127 minima (``probe_fused.case_inputs``, on the
+    TPU kernel's 64-entry table and uncapped loop): identical arrays."""
+    tool = _tool("probe_fused")
+    tab, x, _, entry = probe_fused.case_inputs("cpu", kind, seed)
+    out, wout = pl.pallas_call(
+        tool.probe_kernel,
+        grid=(1,),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY), pl.BlockSpec((8, 128), lambda i: (0, 0))],
+        out_specs=[pl.BlockSpec(memory_space=pl.ANY), pl.BlockSpec((8, 128), lambda i: (0, 0))],
+        out_shape=[jax.ShapeDtypeStruct((8, 128), jnp.float32), jax.ShapeDtypeStruct((8, 128), jnp.float32)],
+        scratch_shapes=[pltpu.VMEM((8, 128), jnp.int32), pltpu.SemaphoreType.DMA(())],
+    )(jnp.asarray(tab.numpy()), jnp.asarray(x.numpy()))
+    o, w = probe_fused.probe_fused(tab, x)
+    np.testing.assert_array_equal(o.numpy(), np.asarray(out))
+    np.testing.assert_array_equal(w.numpy(), np.asarray(wout))
+    np.testing.assert_array_equal(o.numpy(), tab[entry].numpy())
+
+
 def test_probe_fused_main_on_cpu(capsys):
     res = probe_fused.main("cpu")
     assert res["ok_dma"] and res["ok_while"] and 90 <= res["iters"] <= 110
@@ -131,6 +151,44 @@ def test_step_overhead_features_and_bytes():
     # 24 steps x 32 copies at stride 131 mod 4096: 768 distinct blocks
     extra = probe_step_overhead.step_bytes("dma") - probe_step_overhead.step_bytes("")
     assert extra == 768 * 128 * 128 * 2
+
+
+def test_step_overhead_grid_clusters_and_l2_bytes():
+    """P3's host side: the grid padded to a multiple of the cluster size,
+    the cluster sizes offered for a tile count, the ring-only footprint
+    (under half of an SM's 228 KB; the card tests hold two tiles an SM by
+    CUDA's occupancy calculator), and the L2 bytes a ``dma`` call reads
+    (once a cluster, padded clusters included)."""
+    ps = probe_step_overhead
+    assert ps.grid_blocks(8, 1) == 1 and ps.grid_blocks(8, 16) == 16
+    assert [ps.grid_blocks(1000, c) for c in ps.CLUSTER_SWEEP] == [125, 126, 128, 128, 128]
+    assert all(ps.grid_blocks(8192, c) == 1024 for c in ps.CLUSTER_SWEEP)
+    assert ps.cluster_sizes(1) == (1,) and ps.cluster_sizes(5) == (1, 2, 4)
+    assert ps.cluster_sizes(125) == ps.CLUSTER_SWEEP and ps.CLUSTER in ps.CLUSTER_SWEEP
+    assert ps.ring_bytes(128) == 128 + ps.NSLOT * 128 * 128 * 2 <= 113 * 1024
+    per_tile = 24 * 32 * 128 * 128 * 2  # one tile's copies at ITERS=24
+    assert ps.l2_bytes(8192, 24, 1) == 1024 * per_tile  # ~25.8 GB
+    assert all(ps.l2_bytes(8192, 24, c) * c == 1024 * per_tile for c in ps.CLUSTER_SWEEP)
+    assert ps.l2_bytes(1000, 24, 8) == 16 * per_tile and ps.l2_bytes(8, 24, 16) == per_tile
+    assert ps.l2_bytes(8192, 0, 4) == 0
+
+
+def test_probe_fused_plain_caps_the_loop():
+    """P1's plain version counts at most ``max_iters`` steps."""
+    tab, x = probe_fused.inputs("cpu")
+    full = int(probe_fused.probe_fused_plain(tab, x)[1][0, 0])
+    assert 90 <= full <= 110
+    for cap in (0, 1, full - 1, full, full + 1):
+        o, w = probe_fused.probe_fused(tab, x, cap)
+        assert bool((w == min(cap, full)).all()) and torch.equal(o, tab[int(torch.argmin(x[0])) % 64])
+
+
+@pytest.mark.parametrize("tool", [probe_fused, probe_step_overhead])
+def test_probe_ab_refuses_without_a_card(monkeypatch, tool):
+    """The A/B timing entries measure the card or nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="GPU"):
+        tool.ab(["--ab"])
 
 
 def test_fused_companion_inputs_run_to_the_cap():
