@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port's paths once on one NVIDIA GPU.
 
-Phases, one line each:
+Phases, one line each, stamped with the host seconds since the script started:
   1. device        the card, as torch and nvidia-smi name it;
   2. build         nvcc builds the kernels of expann_tpu_torch/csrc for sm_90a
                    (registers, spills and static shared memory from ptxas,
@@ -87,7 +87,9 @@ Phases, one line each:
                    tool's cluster size: padded clusters at 8 and 1000), and
                    its time with the cluster size, the L2 bytes a call reads
                    and the clusters the card holds at once;
- 17. probe_lanes   P4 against its plain version at every mode;
+ 17. probe_lanes   P4 against its plain version at every mode, identical
+                   (the prefix sum within 1e-5), and the modes that reduce
+                   identical on the edge rows (ties, -0 beside +0, +inf);
      then the probes path, counts reset just before it: the tools' sweeps
      (P1 once; P2's block-gather GB/s by R x NBUF and the library chain's;
      P3's µs per step by feature, `dma` at every cluster size, the fixed
@@ -103,8 +105,10 @@ Phases, one line each:
                    (K2-s8): wall ms, the call's span, device µs of kernels and
                    copies, the device's idle share (negative fails: the
                    records would overrun the span), the top kernels by device
-                   time; and the host's own steps of a flat chunk (bf16 cast,
-                   i8 quantization);
+                   time, the process's seconds by step (corpus, build, the
+                   traced call with its warm-up; start-up and exit the rest);
+                   and the host's own steps of a flat chunk (bf16 cast, i8
+                   quantization);
  19. bench         expann_tpu_torch.bench.canonical.run at the canonical size,
                    in this process (the counterpart of bench.py): its JSON line,
                    bench.py's keys, all 11 points, recall@10 at PERF.md's limits
@@ -254,8 +258,12 @@ def graph_cfg():
     return dataclasses.replace(graph_config(), use_packed="auto", use_fused="auto")
 
 
+T0 = time.perf_counter()
+
+
 def phase(name: str, **vals) -> None:
-    print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in vals.items()), flush=True)
+    """One line, stamped with the host seconds since the script started."""
+    print(f"{time.perf_counter() - T0:9.3f} [{name}] " + " ".join(f"{k}={v}" for k, v in vals.items()), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -815,8 +823,12 @@ def probe_phases(torch, dev, card: str) -> dict:
     del qs, bd0, blocks
 
     # ---- 17. P4 -------------------------------------------------------------
+    # every mode identical to its plain version (the prefix sum within 1e-5:
+    # another summation order); the modes that reduce, identical on the
+    # edge rows too (ties, signs of zero, +inf)
     xl = pl.inputs(dev)
     xl[:, 3] = xl[:, 70]  # ties with lane 3 for bcast
+    edges = pl.edge_rows(dev)
     err["probe_lanes"] = 0.0
     for mode in pl.MODES:
         got = pl.lane_ops_cuda(xl, mode)
@@ -826,11 +838,14 @@ def probe_phases(torch, dev, card: str) -> dict:
         err["probe_lanes"] = max(err["probe_lanes"], e)
         phase("probe_lanes", mode=mode, rows=xl.shape[0], iters=pl.ITERS, max_abs_err=f"{e:.3e}",
               identical=bool(torch.equal(got, ref)))
-        if mode in ("stage", "stage64", "bcast"):
-            check(bool(torch.equal(got, ref)), f"probe_lanes {mode} is not identical to its plain version ({e})")
+        if mode == "matmul_cumsum":
+            check(bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-6)), f"probe_lanes {mode} differs by {e}")
         else:
-            rtol = 1e-5 if mode == "matmul_cumsum" else 1e-6
-            check(bool(torch.allclose(got, ref, rtol=rtol, atol=1e-6)), f"probe_lanes {mode} differs by {e}")
+            check(bool(torch.equal(got, ref)), f"probe_lanes {mode} is not identical to its plain version ({e})")
+        if mode in ("reduce", "reduce3") or mode.startswith("carry"):
+            same = bool(torch.equal(pl.lane_ops_cuda(edges, mode), pl.lane_ops_plain(edges, mode)))
+            phase("probe_lanes", mode=mode, edge_rows=edges.shape[0], identical=same)
+            check(same, f"probe_lanes {mode} is not identical to its plain version on the edge rows")
     ms = event_ms(lambda: pl.lane_ops_cuda(xl, "reduce"), reps=20)
     plain_ms = event_ms(lambda: pl.lane_ops_plain(xl, "reduce"), reps=1)
     rows = xl.shape[0]
@@ -892,10 +907,12 @@ def host_ms(fn, reps: int = 5) -> float:
 def traced_in_a_fresh_process(engine: str, B: int, work_dir: str) -> dict:
     """tools/perf_trace's profile of one warm call of ``engine`` (graph,
     flat or flat_i8) on the canonical corpus, in a process of its own, with
-    its trace and the graph's index under ``work_dir``.  Every engine is
-    traced this way: inside this script, after its earlier profiler
-    sessions, a traced flat call (~7 ms) recorded no device activity at all
-    on an H100 (torch 2.11), while the same call traces in a fresh process."""
+    its trace and the graph's index under ``work_dir``, and the process's
+    host seconds (``process_seconds``).  Every engine is traced this way:
+    inside this script, after its earlier profiler sessions, a traced flat
+    call (~7 ms) recorded no device activity at all on an H100 (torch
+    2.11), while the same call traces in a fresh process."""
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "expann_tpu_torch.tools.perf_trace", "--engine", engine, "--B", str(B),
          "--ef", "100", "--top", "8", "--log-dir", os.path.join(work_dir, "trace"),
@@ -903,7 +920,7 @@ def traced_in_a_fresh_process(engine: str, B: int, work_dir: str) -> dict:
         cwd=ROOT, capture_output=True, text=True, timeout=600,
     )
     check(proc.returncode == 0, f"perf_trace --engine {engine} failed ({proc.returncode}):\n{proc.stderr[-2000:]}")
-    return json.loads(proc.stdout[proc.stdout.index("{"):])
+    return dict(json.loads(proc.stdout[proc.stdout.index("{"):]), process_seconds=time.perf_counter() - t0)
 
 
 def trace_phase(torch, flat_i8, card: str) -> None:
@@ -915,12 +932,18 @@ def trace_phase(torch, flat_i8, card: str) -> None:
     ``flat_i8``'s scales)."""
     from expann_tpu_torch.ops.topk import quantize_query_i8
 
+    t0 = time.perf_counter()
     for label, engine, B, kernel in (("graph_s8", "graph", 8192, "fused_search_s8"),
                                      ("flat", "flat", FLAT_CHUNK, "flat_topk_kernel"),
                                      ("flat_i8", "flat_i8", FLAT_CHUNK, "flat_topk_s8_kernel")):
         with tempfile.TemporaryDirectory() as work_dir:
             prof = traced_in_a_fresh_process(engine, B, work_dir)
         check(bool(prof["span_us"]), f"the {label} trace holds no span of the annotated call")
+        # the process's steps: start-up and exit are what its own steps leave
+        steps = prof["seconds"]
+        phase("trace", engine=label, process_seconds=f"{prof['process_seconds']:.1f}",
+              startup_and_exit_seconds=f"{prof['process_seconds'] - sum(steps.values()):.1f}",
+              **{f"{k}_seconds": f"{v:.1f}" for k, v in steps.items()})
         phase("trace", engine=label, B=prof["B"], ef=prof["ef"], wall_ms=f"{prof['wall_ms']:.3f}",
               span_us=f"{prof['span_us']:.1f}", device_us=f"{prof['device_total_us']:.1f}",
               copy_us=f"{prof['copy_us']:.1f}", idle_share=f"{prof['idle_share']:.4f}", card=card)
@@ -937,6 +960,7 @@ def trace_phase(torch, flat_i8, card: str) -> None:
     phase("trace", host_bf16_cast_ms=f"{host_ms(lambda: torch.from_numpy(qh).to(torch.bfloat16)):.3f}",
           host_i8_quantize_ms=f"{host_ms(lambda: quantize_query_i8(qh, flat_i8._i8_center, flat_i8._i8_scale)):.3f}",
           B=FLAT_CHUNK)
+    phase("trace", seconds=f"{time.perf_counter() - t0:.1f}")
 
 
 def bench_py_keys() -> tuple:
@@ -1936,7 +1960,7 @@ def main() -> None:
     phase("build", seconds=f"{build_s:.3f}", source=os.path.join("expann_tpu_torch", "csrc"))
     no_spill = ("flat_topk_kernel", "flat_topk_s8_kernel", "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel",
                 "packed_score_kernel", "fused_search_kernel", "fused_search_s8_kernel", "probe_fused_kernel",
-                "step_overhead_kernel")
+                "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel")
     check(all(ptx[name]["spill_bytes"] == 0 for name in no_spill),
           f"a kernel that may not spill spills registers: {[(name, ptx[name]) for name in no_spill]}")
 

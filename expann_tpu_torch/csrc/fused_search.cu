@@ -85,6 +85,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "keys.cuh"
+
 namespace {
 
 constexpr int THREADS = 64;
@@ -162,18 +164,8 @@ __device__ __forceinline__ void barrier_wait(uint64_t* bar, unsigned parity) {
 }
 
 // ---------------------------------------------------------------------------
-// keys: the unsigned order of orderable(d) is the float order of d,
-// negatives included; -0 counts as +0.  NONE is above every real key.
-
-__device__ __forceinline__ uint32_t orderable(float d) {
-  uint32_t u = __float_as_uint(d);
-  if (u == 0x80000000u) u = 0u;
-  return u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
-}
-
-__device__ __forceinline__ float from_orderable(uint32_t u) {
-  return __uint_as_float(u ^ ((u >> 31) ? 0x80000000u : 0xffffffffu));
-}
+// keys: orderable(d) and from_orderable (keys.cuh).  NONE is above every
+// real key.
 
 // The warp's smallest key (h, i) by h, then i: h and i of it in every lane.
 __device__ __forceinline__ void warp_argmin(uint32_t h, uint32_t i, uint32_t& mh, uint32_t& mi) {

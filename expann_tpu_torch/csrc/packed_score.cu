@@ -70,6 +70,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "keys.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -241,19 +243,7 @@ __device__ __forceinline__ float group_dot(const unsigned char* rows, const floa
 }
 
 // ---------------------------------------------------------------------------
-// selection
-
-// The unsigned order of orderable(d) is the float order of d, negatives
-// included; -0 counts as +0.
-__device__ __forceinline__ uint32_t orderable(float d) {
-  uint32_t u = __float_as_uint(d);
-  if (u == 0x80000000u) u = 0u;
-  return u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
-}
-
-__device__ __forceinline__ float from_orderable(uint32_t u) {
-  return __uint_as_float(u ^ ((u >> 31) ? 0x80000000u : 0xffffffffu));
-}
+// selection: keys of orderable(d) (keys.cuh)
 
 __device__ __forceinline__ key64 kmin(key64 a, key64 b) { return a < b ? a : b; }
 __device__ __forceinline__ key64 kmax(key64 a, key64 b) { return a < b ? b : a; }

@@ -66,15 +66,25 @@
 //     multicast to one block ran at about half their rate.
 //
 // P4  The cost of one warp-level lane operation: one warp per 128-wide row
-//     (4 values a lane, columns 4*lane .. 4*lane+3), T=8 warps a block, G
-//     blocks, ITERS chained steps of the mode's operation: min and argmin by
-//     __shfl_xor_sync butterflies, jnp.roll by __shfl_sync plus a rotation
-//     in registers, the broadcast of lane 3 by __shfl_sync, the inclusive
-//     prefix sum (the TPU took it as a product with a triangular matrix on
-//     its matrix unit) by a warp scan.  Every step depends on the one
-//     before and ITERS is a launch argument, so nothing folds.  Bound:
-//     latency of the dependent chain; its f32 operations are far below the
-//     card's peak.
+//     (4 values a lane, columns 4*lane .. 4*lane+3), `warps` warps a block
+//     (a launch argument, 1-8), ITERS chained steps of the mode's operation.
+//     A row's min is the lane's own min of its 4 values, then one
+//     `redux.sync` (__reduce_min_sync) on the orderable key of it (keys.cuh),
+//     then back to f32, as K1 reduces (fused_search.cu): one instruction on
+//     the chain where a 5-level __shfl_xor_sync butterfly put five shuffle
+//     round trips.  `reduce3` chains three such reductions a step: the min,
+//     the first column holding it (a redux of the int column), the value at
+//     that column.  jnp.roll is a __shfl_sync plus a rotation in registers,
+//     the broadcast of lane 3 a __shfl_sync, the inclusive prefix sum (the
+//     TPU took it as a product with a triangular matrix on its matrix unit)
+//     a warp scan.  Every step performs its mode's reductions on data that
+//     depends on the step before, and ITERS is a launch argument, so
+//     nothing folds.  The tool launches 4 warps a block, one on each of an
+//     SM's schedulers (1 a block ties with it); 8 a block put two chains on
+//     a scheduler and were slower a step on an NVIDIA H100 80GB HBM3 at
+//     700.00 W (up to 7% for the reductions, 14-27% for the compare-exchange
+//     stages and the broadcast).  Bound: latency of the dependent chain; its
+//     f32 operations are far below the card's peak.
 //
 // Every elementwise update uses __fmul_rn / __fadd_rn: no contraction into
 // an FMA, so the kernels repeat the plain versions' rounding exactly.
@@ -88,6 +98,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "keys.cuh"
 
 namespace {
 
@@ -149,24 +161,8 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
 }
 
 // Wait until the phase of parity `parity` of `bar` has completed; false
-// after WAIT_TIMEOUT_NS.
-__device__ __forceinline__ bool barrier_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t a = smem_u32(bar);
-  const uint64_t t0 = global_ns();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return true;
-    if (global_ns() - t0 > WAIT_TIMEOUT_NS) return false;
-  }
-}
-
-// P1 and P3 wait with `try_wait`, which suspends the thread until the phase
-// completes or a time the card sets runs out, and read the clock only every
+// after WAIT_TIMEOUT_NS.  `try_wait` suspends the thread until the phase
+// completes or a time the card sets runs out; the clock is read only every
 // WAIT_POLLS polls, never on the first.  (On an H100 an explicit 10 ms
 // suspend-time hint made P3 ~8% slower at its cluster size, and a wait that
 // acquires at cluster scope, with arrivals released at cluster scope,
@@ -251,14 +247,15 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
-__device__ __forceinline__ int warp_min_int(int v) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1) v = min(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
+__device__ __forceinline__ float lane_min4(const float d[4]) { return fminf(fminf(d[0], d[1]), fminf(d[2], d[3])); }
 
-__device__ __forceinline__ float row_min4(const float d[4]) {
-  return warp_min(fminf(fminf(d[0], d[1]), fminf(d[2], d[3])));
+// P3's row min: a shuffle butterfly (kept, so that P3's step costs stay
+// comparable with its earlier readings)
+__device__ __forceinline__ float row_min4(const float d[4]) { return warp_min(lane_min4(d)); }
+
+// P4's row min: one redux.sync on the orderable key of the lane's min
+__device__ __forceinline__ float row_min_redux(const float d[4]) {
+  return from_orderable(__reduce_min_sync(FULL, orderable(lane_min4(d))));
 }
 
 // ---------------------------------------------------------------------------
@@ -360,7 +357,7 @@ block_gather_kernel(const __nv_bfloat16* __restrict__ packed,  // (NB, R, D)
   for (int j = 0; j < count; ++j) {
     const int slot = j % nbuf;
     const size_t step = blockIdx.x + (size_t)j * gridDim.x;
-    if (!__syncthreads_and(barrier_wait(&bars[slot], (j / nbuf) & 1))) {
+    if (!__syncthreads_and(barrier_wait_polled(&bars[slot], (j / nbuf) & 1))) {
       for (int jj = j; jj < count; ++jj)
         for (int r = tid; r < R; r += GATHER_THREADS) out[(blockIdx.x + (size_t)jj * gridDim.x) * R + r] = NAN;
       return;
@@ -528,16 +525,16 @@ step_overhead_kernel(const float* __restrict__ q,                // (B, 128)
 // ---------------------------------------------------------------------------
 // P4
 
-constexpr int LN_T = 8, LN_W = 128;
+constexpr int LN_MAX_WARPS = 8, LN_W = 128;
 enum LaneMode {
   L_REDUCE, L_REDUCE3, L_STAGE, L_STAGE64, L_BCAST, L_CUMSUM, L_CARRY2, L_CARRY3, L_CARRY_N1, L_CARRY6, L_MODES
 };
 
 template <int MODE>
-__global__ void __launch_bounds__(LN_T * 32)
+__global__ void __launch_bounds__(LN_MAX_WARPS * 32)
 probe_lanes_kernel(const float* __restrict__ x, float* __restrict__ o, int rows, int iters) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t row = (size_t)blockIdx.x * LN_T + warp;
+  const size_t row = (size_t)blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= (size_t)rows) return;
   const float4 v = reinterpret_cast<const float4*>(x + row * LN_W)[lane];
   float d[4] = {v.x, v.y, v.z, v.w};
@@ -546,7 +543,7 @@ probe_lanes_kernel(const float* __restrict__ x, float* __restrict__ o, int rows,
 
   for (int i = 0; i < iters; ++i) {
     if (MODE == L_REDUCE || CARRY) {
-      const float m = row_min4(d);
+      const float m = row_min_redux(d);
 #pragma unroll
       for (int k = 0; k < 4; ++k) d[k] = __fadd_rn(d[k], __fmul_rn(m, 1e-6f));
 #pragma unroll
@@ -557,18 +554,19 @@ probe_lanes_kernel(const float* __restrict__ x, float* __restrict__ o, int rows,
       if (MODE == L_CARRY_N1 || MODE == L_CARRY6) dn ^= 1;
       if (MODE == L_CARRY6) nc += 1;
     } else if (MODE == L_REDUCE3) {
-      // the min, the first lane holding it, and the value at that lane
-      const float m = row_min4(d);
+      // the min, the first column holding it, and the value at that column:
+      // three redux.sync in a chain
+      const float m = row_min_redux(d);
       int ls = INT_MAX;
 #pragma unroll
       for (int k = 3; k >= 0; --k)
         if (d[k] == m) ls = 4 * lane + k;
-      ls = warp_min_int(ls);
+      ls = __reduce_min_sync(FULL, ls);
       float val = INFINITY;
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         if (4 * lane + k == ls) val = d[k];
-      val = warp_min(val);
+      val = from_orderable(__reduce_min_sync(FULL, orderable(val)));
 #pragma unroll
       for (int k = 0; k < 4; ++k) d[k] = __fadd_rn(d[k], __fmul_rn(val, 1e-6f));
     } else if (MODE == L_STAGE || MODE == L_STAGE64) {
@@ -625,8 +623,8 @@ probe_lanes_kernel(const float* __restrict__ x, float* __restrict__ o, int rows,
 }
 
 template <int MODE>
-cudaError_t launch_lanes(const float* x, float* o, int rows, int iters, cudaStream_t stream) {
-  probe_lanes_kernel<MODE><<<(rows + LN_T - 1) / LN_T, LN_T * 32, 0, stream>>>(x, o, rows, iters);
+cudaError_t launch_lanes(const float* x, float* o, int rows, int iters, int warps, cudaStream_t stream) {
+  probe_lanes_kernel<MODE><<<(rows + warps - 1) / warps, warps * 32, 0, stream>>>(x, o, rows, iters);
   return cudaGetLastError();
 }
 
@@ -775,23 +773,23 @@ int expann_step_overhead(const void* q, const void* bd0, const void* packed, voi
 }
 
 // P4.  x (rows, 128) f32 -> o (rows, 128) f32; mode is the index into
-// expann_tpu_torch/tools/probe_lanes.py:MODES.
-int expann_probe_lanes(const void* x, void* o, int rows, int iters, int mode, void* stream) {
-  if (rows < 1 || iters < 0) return (int)cudaErrorInvalidValue;
+// expann_tpu_torch/tools/probe_lanes.py:MODES; `warps` rows (warps) a block, 1-8.
+int expann_probe_lanes(const void* x, void* o, int rows, int iters, int mode, int warps, void* stream) {
+  if (rows < 1 || iters < 0 || warps < 1 || warps > LN_MAX_WARPS) return (int)cudaErrorInvalidValue;
   const auto* xx = (const float*)x;
   auto* oo = (float*)o;
   const auto st = (cudaStream_t)stream;
   switch (mode) {
-    case L_REDUCE: return (int)launch_lanes<L_REDUCE>(xx, oo, rows, iters, st);
-    case L_REDUCE3: return (int)launch_lanes<L_REDUCE3>(xx, oo, rows, iters, st);
-    case L_STAGE: return (int)launch_lanes<L_STAGE>(xx, oo, rows, iters, st);
-    case L_STAGE64: return (int)launch_lanes<L_STAGE64>(xx, oo, rows, iters, st);
-    case L_BCAST: return (int)launch_lanes<L_BCAST>(xx, oo, rows, iters, st);
-    case L_CUMSUM: return (int)launch_lanes<L_CUMSUM>(xx, oo, rows, iters, st);
-    case L_CARRY2: return (int)launch_lanes<L_CARRY2>(xx, oo, rows, iters, st);
-    case L_CARRY3: return (int)launch_lanes<L_CARRY3>(xx, oo, rows, iters, st);
-    case L_CARRY_N1: return (int)launch_lanes<L_CARRY_N1>(xx, oo, rows, iters, st);
-    case L_CARRY6: return (int)launch_lanes<L_CARRY6>(xx, oo, rows, iters, st);
+    case L_REDUCE: return (int)launch_lanes<L_REDUCE>(xx, oo, rows, iters, warps, st);
+    case L_REDUCE3: return (int)launch_lanes<L_REDUCE3>(xx, oo, rows, iters, warps, st);
+    case L_STAGE: return (int)launch_lanes<L_STAGE>(xx, oo, rows, iters, warps, st);
+    case L_STAGE64: return (int)launch_lanes<L_STAGE64>(xx, oo, rows, iters, warps, st);
+    case L_BCAST: return (int)launch_lanes<L_BCAST>(xx, oo, rows, iters, warps, st);
+    case L_CUMSUM: return (int)launch_lanes<L_CUMSUM>(xx, oo, rows, iters, warps, st);
+    case L_CARRY2: return (int)launch_lanes<L_CARRY2>(xx, oo, rows, iters, warps, st);
+    case L_CARRY3: return (int)launch_lanes<L_CARRY3>(xx, oo, rows, iters, warps, st);
+    case L_CARRY_N1: return (int)launch_lanes<L_CARRY_N1>(xx, oo, rows, iters, warps, st);
+    case L_CARRY6: return (int)launch_lanes<L_CARRY6>(xx, oo, rows, iters, warps, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,10 +3,11 @@
 At first use, ``nvcc`` compiles every source of ``csrc/`` for Hopper
 (``sm_90a``), one process per source, all started together, and links the
 objects into one shared library with a plain C interface, under
-``build/kernels/`` at the repository root, named by a hash of the sources
-and flags; later calls (and later processes) reuse it.  The library is
-bound with ``ctypes``: device pointers from ``Tensor.data_ptr()``, PyTorch's
-current stream, and a ``cudaGetLastError()`` code returned by every launch.
+``build/kernels/`` at the repository root, named by a hash of the sources,
+the headers they include and the flags; later calls (and later processes)
+reuse it.  The library is bound with ``ctypes``: device pointers from
+``Tensor.data_ptr()``, PyTorch's current stream, and a ``cudaGetLastError()``
+code returned by every launch.
 
 ``launches`` counts kernel launches per wrapper; each wrapper adds one
 where it launches its kernel and nowhere else.
@@ -29,6 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("flat_topk.cu", "fused_search.cu", "packed_score.cu", "probes.cu")
+HEADERS = ("keys.cuh",)  # included by the sources: part of the library's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -59,7 +61,7 @@ _SIGNATURES = {
     "expann_step_overhead": [_P] * 4 + [_I] * 8 + [_P],
     "expann_step_overhead_smem_bytes": [_I],
     "expann_step_overhead_clusters": [_I] * 3,
-    "expann_probe_lanes": [_P] * 2 + [_I] * 3 + [_P],
+    "expann_probe_lanes": [_P] * 2 + [_I] * 4 + [_P],
 }
 
 
@@ -77,7 +79,7 @@ def _nvcc() -> str:
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     so = BUILD_DIR / f"libexpann_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():

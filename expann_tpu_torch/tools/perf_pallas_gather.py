@@ -23,9 +23,24 @@ its ~19% L2 hits.)  A ring that does not fit a block's shared memory
 (R=128, NBUF=8: 256 KB) is reported as not launchable.
 
     python -m expann_tpu_torch.tools.perf_pallas_gather
+    python -m expann_tpu_torch.tools.perf_pallas_gather --ab
+
+``--ab`` prints one JSON line: the kernel's ms a call at R=128, NBUF=4,
+G=G_LO on a 2 GiB table (CUDA events, ``--samples`` readings of ``--reps``
+calls each), a digest of its scores, and their largest difference from the
+plain version relative to 1 + |score| (the kernel sums in its own order, so
+it is not bit-equal to the plain product).  It uses only the package's
+public functions, so the same file times another checkout's kernel:
+``PYTHONPATH=<checkout> python <this file> --ab``; equal digests mean equal
+scores.
 """
 
 from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
 
 import torch
 
@@ -163,5 +178,38 @@ def main(device="cuda") -> list:
     return sweep(device, log=lambda s: print(s, flush=True))
 
 
+def ab(argv=None) -> dict:
+    """The A/B reading (see the module's docstring); one JSON line."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ab", action="store_true")
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--samples", type=int, default=3)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("perf_pallas_gather --ab times the kernel on an NVIDIA GPU; none is present")
+    import expann_tpu_torch
+    from expann_tpu_torch.tools import perf_pallas_gather as pkg  # the checkout on the path
+
+    dev = torch.device("cuda")
+    R, nbuf, G = 128, 4, pkg.G_LO
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((1, pkg.D), generator=gen, device=dev).to(torch.bfloat16)
+    packed = torch.randn((pkg.table_blocks(R), R, pkg.D), generator=gen, device=dev, dtype=torch.bfloat16)
+    ids = torch.randint(0, packed.shape[0], (G,), generator=gen, device=dev, dtype=torch.int32)
+    got = pkg.block_gather_scores_cuda(packed, ids, q, nbuf)
+    ref = pkg.block_gather_scores_plain(packed, ids, q)
+    ms = [event_ms(lambda: pkg.block_gather_scores_cuda(packed, ids, q, nbuf), reps=args.reps)
+          for _ in range(args.samples)]
+    row = {"kernel": "block_gather", "R": R, "nbuf": nbuf, "G": G, "ms": ms, "reps": args.reps,
+           "digest": hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16],
+           "worst_relative": float(((got - ref).abs() / (1 + ref.abs())).max()),
+           "card": card_name(), "package": expann_tpu_torch.__file__}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 if __name__ == "__main__":
-    main()
+    if "--ab" in sys.argv[1:]:
+        ab(sys.argv[1:])
+    else:
+        main()

@@ -18,7 +18,8 @@ serves the canonical 56k index on s8 packed blocks (the index file is
 built on the card first if it is missing), or with ``--engine`` the
 canonical corpus on the flat engine (``mode="fused"``) or on ``fused_i8``
 with the i8 query wire.  Prints a JSON object with the top kernels by
-device time, the copies and the idle share.
+device time, the copies, the idle share and the seconds of the process's
+steps (``seconds``: corpus, build, traced call with its warm-up).
 """
 
 from __future__ import annotations
@@ -28,12 +29,12 @@ import glob
 import gzip
 import json
 import os
-import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from expann_tpu_torch.utils.profiling import DEFAULT_LOG_DIR, annotate, trace
 
@@ -90,6 +91,15 @@ def parse_copies(log_dir: str, region: str):
 
 REGION = "fused_serving_dispatch"
 ENGINES = ("graph", "flat", "flat_i8")
+N, M, D = 56000, 400, 128  # config_synthetic.json
+
+
+def canonical_corpus() -> np.ndarray:
+    """The canonical corpus, the bytes ``load_synthetic_uniform_sphere_points``
+    returns as ``vecs``, drawn alone: no ground truth, no dataset file."""
+    from expann_tpu_torch.data.loader import generate_synthetic
+
+    return generate_synthetic(N, M, D, None)[0]
 
 
 def profile_dispatch(eng, B: int = 8192, k: int = 10, top: int = 15, log_dir: str = DEFAULT_LOG_DIR,
@@ -140,14 +150,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--engine", choices=ENGINES, default="graph")
     args = ap.parse_args(argv)
 
-    from expann_tpu_torch.data.loader import load_synthetic_uniform_sphere_points
     from expann_tpu_torch.models.antitopo import AntitopoConfig, AntitopoEngine
     from expann_tpu_torch.models.brute_force import BruteForceEngine
 
-    def canonical():
-        with tempfile.TemporaryDirectory() as cache:
-            return load_synthetic_uniform_sphere_points(56000, 400, 10, 128, cache_dir=cache).vecs
-
+    seconds, t0 = {}, time.perf_counter()
     if args.engine == "graph":
         # the index of tools/perf_e2e_graph.py's build (prune_overflow=1),
         # served as tools/perf_trace.py serves it: s8 blocks, 8 entry seeds
@@ -159,13 +165,24 @@ def main(argv=None) -> dict:
         eng = AntitopoEngine(config=cfg)
         if not os.path.exists(args.index):
             os.makedirs(os.path.dirname(os.path.abspath(args.index)), exist_ok=True)
-            eng.store_many_vectors(canonical())
+            corpus = canonical_corpus()
+            seconds["corpus"] = time.perf_counter() - t0
+            eng.store_many_vectors(corpus)
     else:  # the flat engines over the canonical corpus, as bench.py builds them
         eng = BruteForceEngine(mode="fused") if args.engine == "flat" else BruteForceEngine(
             mode="fused_i8", query_wire="i8")
-        eng.store_many_vectors(canonical())
+        corpus = canonical_corpus()
+        seconds["corpus"] = time.perf_counter() - t0
+        eng.store_many_vectors(corpus)
+    t1 = time.perf_counter()
     eng.build()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    seconds["build"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
     out = profile_dispatch(eng, args.B, top=args.top, log_dir=args.log_dir)
+    seconds["traced"] = time.perf_counter() - t1
+    out["seconds"] = seconds
     print(f"traced dispatch: {out['wall_ms']:.1f} ms wall (B={args.B})", flush=True)
     print(json.dumps(out, indent=1), flush=True)
     return out

@@ -824,10 +824,10 @@ def test_step_overhead_footprint_and_clusters(dev):
 
 @pytest.mark.parametrize("mode", probe_lanes.MODES)
 def test_lane_ops_match_plain(dev, mode):
-    """P4, every mode at the tool's shape (512 rows, 512 steps): exact for
-    the compare-exchange stages and the broadcast, rtol 1e-6 for the
-    reductions and carries, 1e-5 for the prefix sum (another order), atol
-    1e-6 where a value passes near 0."""
+    """P4, every mode at the tool's shape (512 rows, 512 steps): identical
+    (every min, add and multiply rounds as the plain version's), but the
+    prefix sum, within rtol 1e-5 (another summation order) and atol 1e-6
+    where a value passes near 0."""
     x = probe_lanes.inputs(dev)
     x[:, 3] = x[:, 70]
     before = _kernels.launches["probe_lanes"]
@@ -835,10 +835,35 @@ def test_lane_ops_match_plain(dev, mode):
     assert _kernels.launches["probe_lanes"] == before + 1
     ref = probe_lanes.lane_ops_plain(x, mode)
     torch.cuda.synchronize()
-    if mode in ("stage", "stage64", "bcast"):
-        assert torch.equal(got, ref)
+    if mode == "matmul_cumsum":
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
     else:
-        torch.testing.assert_close(got, ref, rtol=1e-5 if mode == "matmul_cumsum" else 1e-6, atol=1e-6)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("warps", probe_lanes.WARPS_SWEEP)
+@pytest.mark.parametrize("mode", ["reduce", "reduce3", "carry6"])
+def test_lane_ops_edge_rows(dev, mode, warps):
+    """P4's reductions by keys on the edge rows (the min tied across lanes
+    and within a lane's 4 values, a negative row, -0.0 beside +0.0, +inf, a
+    row of +inf, a row of equal values), 512 steps, at every launch shape:
+    identical to the plain version."""
+    x = probe_lanes.edge_rows(dev)
+    got = probe_lanes.lane_ops_cuda(x, mode, warps=warps)
+    ref = probe_lanes.lane_ops_plain(x, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("warps", probe_lanes.WARPS_SWEEP)
+def test_lane_ops_launch_shapes(dev, warps):
+    """P4 at every launch shape of --ab, every mode but the prefix sum, on
+    a row count that leaves the last block part-filled: identical."""
+    x = probe_lanes.inputs(dev)[:509]
+    for mode in probe_lanes.MODES:
+        if mode != "matmul_cumsum":
+            got = probe_lanes.lane_ops_cuda(x, mode, 64, warps)
+            assert torch.equal(got, probe_lanes.lane_ops_plain(x, mode, 64)), mode
 
 
 @pytest.fixture

@@ -183,7 +183,7 @@ def test_probe_fused_plain_caps_the_loop():
         assert bool((w == min(cap, full)).all()) and torch.equal(o, tab[int(torch.argmin(x[0])) % 64])
 
 
-@pytest.mark.parametrize("tool", [probe_fused, probe_step_overhead])
+@pytest.mark.parametrize("tool", [probe_fused, probe_step_overhead, probe_lanes, perf_pallas_gather])
 def test_probe_ab_refuses_without_a_card(monkeypatch, tool):
     """The A/B timing entries measure the card or nothing."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -253,12 +253,103 @@ def test_lane_ops_match_tpu_kernel(interpret, mode):
     assert not np.array_equal(got, x)
 
 
+@pytest.mark.parametrize("mode", ["reduce", "reduce3", "carry6"])
+def test_lane_ops_edge_rows_match_tpu_kernel(interpret, mode):
+    """P4's plain version on the edge rows (ties across and within lanes,
+    negative rows, -0 beside +0, +inf, equal values) against the TPU
+    kernel, with the tolerance of the test above; every tie survives the
+    steps, so the rows stay a test of the reductions to the last step."""
+    tool = _tool("probe_lanes")
+    tool.ITERS, tool.G = 16, 2
+    x = probe_lanes.edge_rows("cpu").numpy()
+    ref = np.asarray(
+        pl.pallas_call(
+            tool.make_kernel(mode, 128),
+            grid=(2,),
+            in_specs=[pl.BlockSpec((8, 128), lambda i: (i, 0))],
+            out_specs=pl.BlockSpec((8, 128), lambda i: (i, 0)),
+            out_shape=jax.ShapeDtypeStruct((16, 128), jnp.float32),
+        )(jnp.asarray(x))
+    )
+    got = probe_lanes.lane_ops(torch.from_numpy(x), mode, iters=16).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6)
+    assert np.isinf(got[5]).all() and (got[6] == got[6, 0]).all()
+    for r in range(16):
+        m = x[r].min()
+        assert np.array_equal(got[r] == got[r].min(), x[r] == m), r
+
+
 def test_wrappers_raise_on_other_devices():
     meta = torch.empty((8, 128), device="meta")
     with pytest.raises(ValueError):
         probe_lanes.lane_ops(meta, "reduce")
     with pytest.raises(ValueError):
         probe_lanes.lane_ops(torch.zeros((8, 128)), "sort")
+    for warps in (0, 9):
+        with pytest.raises(ValueError, match="warps"):
+            probe_lanes.lane_ops_cuda(torch.zeros((8, 128)), "reduce", warps=warps)
+
+
+SASS_OF_A_STEP = """
+        Function : _ZN41_GLOBAL__N__probes_cu18probe_lanes_kernelILi0EEEvPKfPfii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                  /* 0x00000a00ff017b82 */
+        /*0010*/                   ISETP.GE.AND P0, PT, R0, UR4, PT ;      /* 0x000fe2000bf06270 */
+.L_x_1:
+        /*0020*/                   FMNMX R6, R2, R3, PT ;                  /* 0x0 */
+        /*0030*/                   FMNMX R7, R4, R5, PT ;                  /* 0x0 */
+        /*0040*/                   IADD3 R0, P2, R0, 0x1, RZ ;             /* 0x0 */
+        /*0050*/                   FMNMX R6, R6, R7, PT ;                  /* 0x0 */
+        /*0060*/                   ISETP.NE.AND P1, PT, R6, -0x80000000, PT ; /* 0x0 */
+        /*0070*/              @!P1 MOV R6, RZ ;                            /* 0x0 */
+        /*0080*/                   REDUX.MIN UR5, R6 ;                     /* 0x0 */
+        /*0090*/                   MOV R8, UR5 ;                           /* 0x0 */
+        /*00a0*/                   FMUL R8, R8, 9.9999999747524270788e-07 ; /* 0x0 */
+        /*00b0*/                   FADD R2, R2, R8 ;                       /* 0x0 */
+        /*00c0*/                   ISETP.GE.AND P0, PT, R0, R9, PT ;       /* 0x0 */
+        /*00d0*/              @!P0 BRA `(.L_x_1) ;                         /* 0x0 */
+        /*00e0*/                   STG.E [R10.64], R2 ;                    /* 0x0 */
+        /*00f0*/                   EXIT ;                                  /* 0x0 */
+        /*0100*/                   BRA 0x100 ;                             /* 0x0 */
+"""
+
+
+def test_lane_sass_reader_finds_the_step_chain():
+    """--sass's reader: the loop between a branch's earlier target (a label,
+    as nvdisasm prints it, or an address, as cuobjdump does; not the branch
+    to itself after EXIT) and the branch, and its longest chain through
+    registers, predicates (a guarded write also reads the old value) and
+    uniform registers; the counter's carry predicate and the loop's own
+    compare are off the chain."""
+    (body,) = probe_lanes.loops(SASS_OF_A_STEP)
+    assert len(body) == 12 and body[0].startswith("FMNMX") and body[-1].endswith("BRA `(.L_x_1)")
+    by_address = SASS_OF_A_STEP.replace(".L_x_1:\n", "").replace("`(.L_x_1)", "0x20")
+    assert probe_lanes.loops(by_address) == [body[:-1] + ["@!P0 BRA 0x20"]]
+    got = probe_lanes.loop_chain(body)
+    assert got == {"chain_instructions": 8, "chain": "FMNMX FMNMX ISETP.NE.AND MOV REDUX.MIN MOV FMUL FADD"}
+    assert probe_lanes._writes_reads("IADD3 R0, P2, R0, 0x1, RZ") == (["R0", "P2"], ["R0"])
+    assert probe_lanes._writes_reads("@!P1 MOV R6, RZ") == (["R6"], ["P1", "R6"])
+    assert probe_lanes._writes_reads("STG.E [R10.64], R2") == ([], ["R10", "R2"])
+    assert probe_lanes._writes_reads("SHFL.BFLY PT, R3, R2, 0x10, 0x1f") == (["R3"], ["R2"])
+
+
+def test_perf_trace_corpus_is_the_canonical_one(tmp_path, monkeypatch):
+    """perf_trace serves the bytes the canonical dataset loader returns as
+    ``vecs`` (the same draws as the JAX package's generator), drawn alone:
+    no ground truth is computed and no file is written."""
+    from expann_tpu.data.loader import generate_synthetic as jax_generate
+    from expann_tpu_torch.data import loader
+
+    def refuse(*a, **k):
+        raise AssertionError("the dataset loader was called")
+
+    monkeypatch.setattr(loader, "load_synthetic_uniform_sphere_points", refuse)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    got = perf_trace.canonical_corpus()
+    assert list(tmp_path.iterdir()) == []
+    want = loader.generate_synthetic(56000, 400, 128, None)[0]
+    assert got.dtype == np.float32 and got.shape == (56000, 128)
+    assert got.tobytes() == want.tobytes() == jax_generate(56000, 400, 128, None)[0].tobytes()
 
 
 def test_trace_on_cpu_holds_the_annotation(tmp_path):
