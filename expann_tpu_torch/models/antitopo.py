@@ -26,7 +26,11 @@ queries take the uint8 gather beam (``query_batch(compressed=True)``).
 per-query scale.  ``num_distcomps`` counts the full-precision distance
 evaluations of queries and ``num_distcomps_compressed`` the quantized ones
 (RECORD_STATS, src/antitopo_engine.h:125-129); both reset on ``build`` and
-on ``set_ef_search``.
+on ``set_ef_search``.  Under a profiler each call is one
+``expann.engine.query`` span holding the host's cast
+(``expann.engine.cast``), each chunk's upload (``expann.engine.upload``),
+the search's spans (models/search.py) and the download
+(``expann.engine.download``).
 
 ``build`` takes the one-shot builder up to 131072 rows (``BuildConfig.
 auto_wave_threshold``) and the one-device distributed builder above it, or
@@ -41,7 +45,6 @@ build -> store -> build accumulates, as the reference's live inserts do
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -56,6 +59,7 @@ from expann_tpu_torch.ops.distance import pad_dim
 from expann_tpu_torch.ops.packed import build_packed, build_packed_i8, packed_bytes
 from expann_tpu_torch.ops.quantize import quantize_ranged, quantize_simple, ranged_scale_offset
 from expann_tpu_torch.utils.persist import index_exists, load_index, save_index
+from expann_tpu_torch.utils.profiling import annotate
 
 ENTRY_SCAN_MAX = 65536  # largest upper layer the dense entry scan takes
 # Largest packed layout (blocks only) the engine builds; above it queries
@@ -181,7 +185,6 @@ class AntitopoEngine(Engine):
         self.dim = 0
         self.num_distcomps = 0
         self.num_distcomps_compressed = 0
-        self.total_query_time_ns = 0.0
         self.build_stats: dict = {}
 
     # --- identity / params -------------------------------------------------
@@ -221,7 +224,7 @@ class AntitopoEngine(Engine):
     # --- build -------------------------------------------------------------
     def build(self) -> None:
         c = self.cfg
-        # the wave and distributed builders' stage seconds and wave counts
+        # the builders' stage seconds (and the wave builders' wave counts)
         self.build_stats = {}
         if c.index_filename and c.read_index:
             # read if the file exists, else build and write (reference
@@ -298,7 +301,6 @@ class AntitopoEngine(Engine):
         self.cfg.ef_search = int(ef_search)
         self.num_distcomps = 0
         self.num_distcomps_compressed = 0
-        self.total_query_time_ns = 0.0
 
     def set_packed_dtype(self, dtype: str) -> None:
         """Switch the packed layout ("bf16" | "i8") of a built index: the
@@ -354,17 +356,21 @@ class AntitopoEngine(Engine):
     def query_k_batch(self, queries: np.ndarray, k: int) -> np.ndarray:
         if self.graph is None:
             raise RuntimeError("build() must be called before queries")
+        with annotate("expann.engine.query"):
+            return self._query(queries, k)
+
+    def _query(self, queries: np.ndarray, k: int) -> np.ndarray:
         c = self.cfg
         use_packed = self._resolve_packed()
         if c.use_fused == "auto":
             use_fused = use_packed and self.device.type == "cuda"
         else:
             use_fused = bool(c.use_fused) and use_packed
-        t_begin = time.perf_counter_ns()
-        q = np.asarray(queries, dtype=np.float32)
-        if q.ndim != 2:
-            raise ValueError("queries must be 2D")
-        q = pad_dim(q, self.graph.vectors.shape[1])
+        with annotate("expann.engine.cast"):
+            q = np.asarray(queries, dtype=np.float32)
+            if q.ndim != 2:
+                raise ValueError("queries must be 2D")
+            q = pad_dim(q, self.graph.vectors.shape[1])
         ef = self._ef(k)
         bs = c.query_block
         # quantized serving: the fused route over s8 blocks when they exist,
@@ -380,13 +386,19 @@ class AntitopoEngine(Engine):
                 # (1 B/dim) plus a per-query scale, and are used as f32 on
                 # the device for descent, traversal and rerank alike
                 q_inv = None
-                if c.query_wire == "i8":
-                    a = np.maximum(np.abs(chunk).max(axis=1, keepdims=True), 1e-30)
-                    q_op = torch.from_numpy(np.clip(np.round(chunk * (127.0 / a)), -127, 127).astype(np.int8))
+                with annotate("expann.engine.cast"):
+                    if c.query_wire == "i8":
+                        a = np.maximum(np.abs(chunk).max(axis=1, keepdims=True), 1e-30)
+                        q_op = torch.from_numpy(np.clip(np.round(chunk * (127.0 / a)), -127, 127).astype(np.int8))
+                        q_inv = torch.from_numpy((a / 127.0).astype(np.float32))
+                    else:
+                        q_op = torch.from_numpy(chunk).to(torch.bfloat16)
+                with annotate("expann.engine.upload"):
                     q_op = q_op.to(self.device)
-                    q_inv = torch.from_numpy((a / 127.0).astype(np.float32)).to(self.device)
-                else:
-                    q_op = torch.from_numpy(chunk).to(torch.bfloat16).to(self.device).float()
+                    if q_inv is None:
+                        q_op = q_op.float()
+                    else:
+                        q_inv = q_inv.to(self.device)
                 ids, _, ncomp = fused_query_batch(
                     self.graph,
                     q_op,
@@ -402,9 +414,11 @@ class AntitopoEngine(Engine):
                 # the per-iteration route takes the f32 query as it is; the
                 # block scorer has no code-space transform, so an s8 layout
                 # takes the gather beam (antitopo.py:563-567)
+                with annotate("expann.engine.upload"):
+                    q_dev = torch.from_numpy(chunk).to(self.device)
                 ids, _, ncomp = query_batch(
                     self.graph,
-                    torch.from_numpy(chunk).to(self.device),
+                    q_dev,
                     k=k,
                     ef=ef,
                     expand=c.query_expand,
@@ -414,6 +428,9 @@ class AntitopoEngine(Engine):
                 )
             res.append(ids)
             ncomp_total += ncomp.sum()
+        with annotate("expann.engine.download"):
+            out = torch.cat(res).cpu().numpy()
+        # read after the download, which has waited for the device already
         if c.use_compression:
             # the traversal scores codes; the final beam is reranked in exact
             # f32, ef full-precision computations per query (antitopo.py:593-601)
@@ -421,8 +438,6 @@ class AntitopoEngine(Engine):
             self.num_distcomps += q.shape[0] * ef
         else:
             self.num_distcomps += int(ncomp_total)
-        out = torch.cat(res).cpu().numpy()
-        self.total_query_time_ns += time.perf_counter_ns() - t_begin
         return out
 
     def query_k(self, v: np.ndarray, k: int) -> List[int]:

@@ -76,5 +76,3 @@ class Engine:
         ):
             if hasattr(self, attr):
                 setattr(self, attr, 0)
-        if hasattr(self, "total_query_time_ns"):
-            self.total_query_time_ns = 0.0

@@ -18,6 +18,12 @@ Three modes:
 
 ``topk_mode`` picks the kernel: ``"count"`` (count-then-insert, the
 default) or ``"fixed"`` (k passes per corpus tile); same results.
+
+Under a profiler each call is one ``expann.engine.query`` span holding the
+host's cast (``expann.engine.cast``), each chunk's upload
+(``expann.engine.upload``) and scan (``expann.search.traverse``), the
+``fused_i8`` rerank (``expann.search.rerank``) and the download
+(``expann.engine.download``), as in the graph engine.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 from expann_tpu_torch.models.base import Engine, ParamList, _concat_pending
 from expann_tpu_torch.ops.distance import pad_dim, pairwise_dist2, squared_norms
 from expann_tpu_torch.ops.topk import MODES, flat_topk, flat_topk_prepare, quantize_corpus_i8, quantize_query_i8
+from expann_tpu_torch.utils.profiling import annotate
 
 
 def exact_topk(q: torch.Tensor, x: torch.Tensor, x_norms: torch.Tensor, k: int):
@@ -160,26 +167,42 @@ class BruteForceEngine(Engine):
         out = []
         for start in range(0, q.shape[0], bs):
             chunk = q[start : start + bs]
-            qk = torch.from_numpy(quantize_query_i8(chunk, self._i8_center, self._i8_scale)).to(self.device)
-            cand, _ = flat_topk(qk, self._x_fused, scan_k, mode=self.topk_mode)
+            with annotate("expann.engine.cast"):
+                qk = torch.from_numpy(quantize_query_i8(chunk, self._i8_center, self._i8_scale))
+            with annotate("expann.engine.upload"):
+                qk = qk.to(self.device)
+            with annotate("expann.search.traverse"):
+                cand, _ = flat_topk(qk, self._x_fused, scan_k, mode=self.topk_mode)
             if self.query_wire == "i8":
-                ids, _ = rerank_dequant(qk, self._i8_center_dev, self._i8_inv_scale, self._x, self._x_norms, cand, k)
+                with annotate("expann.search.rerank"):
+                    ids, _ = rerank_dequant(qk, self._i8_center_dev, self._i8_inv_scale, self._x, self._x_norms,
+                                            cand, k)
             else:
-                qd = torch.from_numpy(chunk).to(torch.bfloat16).to(self.device).float()
-                ids, _ = rerank_exact(qd, self._x, self._x_norms, cand, k)
+                # the host casts the bf16 query while the card scans
+                with annotate("expann.engine.cast"):
+                    qd = torch.from_numpy(chunk).to(torch.bfloat16)
+                with annotate("expann.engine.upload"):
+                    qd = qd.to(self.device)
+                with annotate("expann.search.rerank"):
+                    ids, _ = rerank_exact(qd.float(), self._x, self._x_norms, cand, k)
             out.append(ids)
         return out
 
     def query_k_batch(self, queries: np.ndarray, k: int) -> np.ndarray:
         if self._x is None and self._x_fused is None:
             raise RuntimeError("build() must be called before queries")
-        q = np.asarray(queries, dtype=np.float32)
-        if q.ndim != 2:
-            raise ValueError("queries must be 2D")
-        width = self._width()
-        q = pad_dim(q, width)
-        if q.shape[-1] != width:
-            raise ValueError("query dim exceeds corpus dim")
+        with annotate("expann.engine.query"):
+            return self._query(queries, k)
+
+    def _query(self, queries: np.ndarray, k: int) -> np.ndarray:
+        with annotate("expann.engine.cast"):
+            q = np.asarray(queries, dtype=np.float32)
+            if q.ndim != 2:
+                raise ValueError("queries must be 2D")
+            width = self._width()
+            q = pad_dim(q, width)
+            if q.shape[-1] != width:
+                raise ValueError("query dim exceeds corpus dim")
         out = []
         bs = max(self.batch_size, min(q.shape[0], 16384))
         if self.mode == "fused_i8":
@@ -188,12 +211,19 @@ class BruteForceEngine(Engine):
             # queries travel as bf16: the kernel rounds them to the corpus
             # dtype anyway, and it halves the host-to-device bytes
             for start in range(0, q.shape[0], bs):
-                chunk = torch.from_numpy(q[start : start + bs]).to(torch.bfloat16)
-                ids, _ = flat_topk(chunk.to(self.device), self._x_fused, k, mode=self.topk_mode)
+                with annotate("expann.engine.cast"):
+                    chunk = torch.from_numpy(q[start : start + bs]).to(torch.bfloat16)
+                with annotate("expann.engine.upload"):
+                    chunk = chunk.to(self.device)
+                with annotate("expann.search.traverse"):
+                    ids, _ = flat_topk(chunk, self._x_fused, k, mode=self.topk_mode)
                 out.append(ids)
         else:
             for start in range(0, q.shape[0], self.batch_size):
-                chunk = torch.from_numpy(q[start : start + self.batch_size]).to(self.device)
-                ids, _ = exact_topk(chunk, self._x, self._x_norms, k)
+                with annotate("expann.engine.upload"):
+                    chunk = torch.from_numpy(q[start : start + self.batch_size]).to(self.device)
+                with annotate("expann.search.traverse"):
+                    ids, _ = exact_topk(chunk, self._x, self._x_norms, k)
                 out.append(ids)
-        return torch.cat(out).cpu().numpy()
+        with annotate("expann.engine.download"):
+            return torch.cat(out).cpu().numpy()

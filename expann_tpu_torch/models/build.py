@@ -45,6 +45,7 @@ import torch
 from expann_tpu_torch.models.graph import GraphIndex, UpperLayer, make_corpus
 from expann_tpu_torch.models.prune import prune_candidates
 from expann_tpu_torch.ops.distance import pairwise_dist2
+from expann_tpu_torch.utils.profiling import StageClock, no_stage
 
 INF = float("inf")
 REVERSE_CHUNK_ROWS = 8192  # source-row chunk of the JAX reverse pass
@@ -399,31 +400,37 @@ class BuildConfig:
 
 
 def build_layer(
-    member_vecs: torch.Tensor, member_norms: torch.Tensor, cap: int, cfg: BuildConfig
+    member_vecs: torch.Tensor, member_norms: torch.Tensor, cap: int, cfg: BuildConfig,
+    clock: Optional[StageClock] = None,
 ) -> torch.Tensor:
     """One layer's adjacency over its member set: ``(n_l, R)`` int32 of
-    layer-local slots, sentinel n_l, R = cap rounded up to 16."""
+    layer-local slots, sentinel n_l, R = cap rounded up to 16.  ``clock``,
+    when given, times the stages ``scan`` (candidates), ``prune`` and
+    ``rows`` (the reverse pass and the finished rows)."""
+    stage = clock.stage if clock is not None else no_stage
     n = member_vecs.shape[0]
     C = min(cfg.prune_cand, max(n - 1, 1))
-    knn_ids, knn_d = exact_knn(member_vecs, member_norms, C, cfg.row_block)
-    if cfg.ortho_count > 1:
+    with stage("scan"):
+        knn_ids, knn_d = exact_knn(member_vecs, member_norms, C, cfg.row_block)
+        if cfg.ortho_count > 1:
 
-        def penalized(chosen, chosen_valid):
-            return ortho_knn(member_vecs, member_norms, chosen, chosen_valid, cfg.ortho_factor,
-                             cfg.ortho_bias, C, cfg.row_block, cfg.col_block)
+            def penalized(chosen, chosen_valid):
+                return ortho_knn(member_vecs, member_norms, chosen, chosen_valid, cfg.ortho_factor,
+                                 cfg.ortho_bias, C, cfg.row_block, cfg.col_block)
 
-        knn_ids, knn_d = ortho_union(knn_ids, knn_d, cfg.ortho_count, penalized, C, n)
+            knn_ids, knn_d = ortho_union(knn_ids, knn_d, cfg.ortho_count, penalized, C, n)
 
-    zero = torch.zeros((1, member_vecs.shape[1]), dtype=torch.float32, device=member_vecs.device)
-    inf = torch.full((1,), INF, dtype=torch.float32, device=member_vecs.device)
-    vec_s = torch.cat([member_vecs, zero])
-    norm_s = torch.cat([member_norms, inf])
-
-    args = (cfg.ortho_factor, cfg.ortho_bias, cfg.prune_overflow, cfg.prune_block)
-    sel_ids, sel_d = prune_all(vec_s, norm_s, knn_ids, knn_d, cap, *args)
-    inc_src, inc_d = incoming_edges(sel_ids, sel_d, A=min(2 * cap, 4096), sentinel=n)
-    merged_ids, merged_d, count = merge_lazy(sel_ids, sel_d, inc_src, inc_d)
-    return finish_rows(vec_s, norm_s, merged_ids, merged_d, count, cap, _round_up(cap, 16), *args)
+    with stage("prune"):
+        zero = torch.zeros((1, member_vecs.shape[1]), dtype=torch.float32, device=member_vecs.device)
+        inf = torch.full((1,), INF, dtype=torch.float32, device=member_vecs.device)
+        vec_s = torch.cat([member_vecs, zero])
+        norm_s = torch.cat([member_norms, inf])
+        args = (cfg.ortho_factor, cfg.ortho_bias, cfg.prune_overflow, cfg.prune_block)
+        sel_ids, sel_d = prune_all(vec_s, norm_s, knn_ids, knn_d, cap, *args)
+    with stage("rows"):
+        inc_src, inc_d = incoming_edges(sel_ids, sel_d, A=min(2 * cap, 4096), sentinel=n)
+        merged_ids, merged_d, count = merge_lazy(sel_ids, sel_d, inc_src, inc_d)
+        return finish_rows(vec_s, norm_s, merged_ids, merged_d, count, cap, _round_up(cap, 16), *args)
 
 
 def build_upper_layers(
@@ -478,7 +485,10 @@ def build_index(x: np.ndarray, cfg: Optional[BuildConfig], device, verbose: bool
     rows (or with ``builder="dist"``) the one-device distributed builder.
     After a wave or distributed build, ``refine_frac > 0`` runs the
     refinement pass.  ``verbose`` prints the wave and distributed builders'
-    progress and stage seconds; ``stats``, when given, receives theirs."""
+    progress and stage seconds; ``stats``, when given, receives the
+    builder's stats, among them ``seconds`` a stage (the one-shot builder's:
+    ``scan``, ``prune`` and ``rows`` of the bottom layer, then ``upper``,
+    tiling the build after the corpus upload and the layer draw)."""
     cfg = cfg or BuildConfig()
     x = np.asarray(x, dtype=np.float32)
     n = x.shape[0]
@@ -510,13 +520,18 @@ def build_index(x: np.ndarray, cfg: Optional[BuildConfig], device, verbose: bool
     vectors, norms = make_corpus(x, device)
     levels, max_layer, sv = draw_levels(n, cfg.M, cfg.seed)
 
+    clock = StageClock(device)
     # the bottom layer's local sentinel (n) is the global sentinel
-    adj0 = build_layer(vectors[:n], norms[:n], cfg.M0, cfg)
+    adj0 = build_layer(vectors[:n], norms[:n], cfg.M0, cfg, clock)
     adj_bottom = torch.cat([adj0, torch.full((1, adj0.shape[1]), n, dtype=torch.int32, device=device)])
-    upper = build_upper_layers(vectors, norms, levels, max_layer, cfg)
+    with clock.stage("upper"):
+        upper = build_upper_layers(vectors, norms, levels, max_layer, cfg)
+    clock.stop()
     if device.type == "cuda":
         # build returns a finished index (src/basic_bench.h:62-71)
         torch.cuda.synchronize(device)
+    if stats is not None:
+        stats["seconds"] = clock.seconds()
     return GraphIndex(
         vectors=vectors,
         norms=norms,

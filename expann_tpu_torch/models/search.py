@@ -19,6 +19,13 @@ layers (the reference's ``_query_k`` flow, src/antitopo_engine.h:853-928):
     One host sync per iteration (``done.all()``).  ``beam_search`` is also
     the wave builders' construction search (models/wavebuild.py), with the
     ortho-penalized score for their extra passes.
+
+Spans (``utils/profiling.annotate``, recorded only under a profiler):
+``expann.search.entry`` (the entry scan or descent of the fused route),
+``expann.search.descend``, ``expann.search.traverse`` (the fused launch, or
+the whole ``beam_search`` of the per-iteration route),
+``expann.search.rerank``, and ``expann.sync`` around each blocking device
+read: one a descent step and one a beam iteration.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from expann_tpu_torch.models.graph import GraphIndex
 from expann_tpu_torch.ops.distance import batched_neighbour_dist2, squared_norms
 from expann_tpu_torch.ops.fused import fused_search
 from expann_tpu_torch.ops.packed import packed_score
+from expann_tpu_torch.utils.profiling import annotate
 
 INF = float("inf")
 
@@ -82,7 +90,9 @@ def greedy_descent(
         nd_min = nd.gather(1, j)[:, 0]
         best = nbrs.gather(1, j)[:, 0]
         better = nd_min < ep_d
-        if not bool(better.any()):
+        with annotate("expann.sync"):
+            improved = bool(better.any())
+        if not improved:
             return ep, ep_d
         ep = torch.where(better, best, ep)
         ep_d = torch.where(better, nd_min, ep_d)
@@ -91,10 +101,11 @@ def greedy_descent(
 def descend(graph: GraphIndex, q: torch.Tensor, qn: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy descent from the starting vertex through the upper layers:
     one entry ``(ep, ep_d)`` ``(B,)`` per query."""
-    ep = torch.full((q.shape[0],), graph.starting_vertex, dtype=torch.int32, device=q.device)
-    ep_d = _gather_dist2(graph.vectors, graph.norms, ep[:, None], q, qn)[:, 0]
-    for layer in reversed(graph.layers):
-        ep, ep_d = greedy_descent(graph.vectors, graph.norms, layer.slot, layer.adj, q, qn, ep, ep_d)
+    with annotate("expann.search.descend"):
+        ep = torch.full((q.shape[0],), graph.starting_vertex, dtype=torch.int32, device=q.device)
+        ep_d = _gather_dist2(graph.vectors, graph.norms, ep[:, None], q, qn)[:, 0]
+        for layer in reversed(graph.layers):
+            ep, ep_d = greedy_descent(graph.vectors, graph.norms, layer.slot, layer.adj, q, qn, ep, ep_d)
     return ep, ep_d
 
 
@@ -151,9 +162,10 @@ def rerank(graph: GraphIndex, q: torch.Tensor, beam_ids: torch.Tensor, k: int):
     """Exact f32 rerank of unsorted beams: ``(ids, d)`` ``(B, k)`` ascending
     by distance (stable, so equal distances keep beam order); sentinel
     lanes sort last."""
-    beam_d = _gather_dist2(graph.vectors, graph.norms, beam_ids, q, squared_norms(q))
-    beam_d, order = torch.sort(beam_d, dim=1, stable=True)
-    return beam_ids.gather(1, order)[:, :k], beam_d[:, :k]
+    with annotate("expann.search.rerank"):
+        beam_d = _gather_dist2(graph.vectors, graph.norms, beam_ids, q, squared_norms(q))
+        beam_d, order = torch.sort(beam_d, dim=1, stable=True)
+        return beam_ids.gather(1, order)[:, :k], beam_d[:, :k]
 
 
 def _earlier_dup(ids: torch.Tensor) -> torch.Tensor:
@@ -248,8 +260,10 @@ def beam_search(
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     E = max(1, min(expand, ef))
 
+    # a query is done once an iteration finds nothing to expand: the loop
+    # reads that after each iteration (a fresh beam is never done)
     it = 0
-    while it < max_iters and not bool(done.all()):
+    while it < max_iters and B > 0:
         masked = torch.where(beam_exp, INF, beam_d)
         # the E best by (d, position): lax.top_k's tie order
         best_pos = torch.sort(masked, dim=1, stable=True).indices[:, :E]
@@ -280,6 +294,10 @@ def beam_search(
         beam_ids = torch.cat([beam_ids, nbrs], 1).gather(1, order)
         beam_exp = torch.cat([beam_exp, torch.zeros_like(dup)], 1).gather(1, order)
         it += 1
+        with annotate("expann.sync"):
+            finished = bool(done.all())
+        if finished:
+            break
     if iters is not None:
         iters.append(it)
     return beam_ids, beam_d, ncomp
@@ -321,21 +339,24 @@ def query_batch(
             qc = torch.clamp(torch.round(q * graph.quant_scale + graph.quant_offset), 0.0, 255.0)
         else:
             qc = torch.floor(q)
-        beam_ids, _, ncomp = beam_search(
-            graph.codes, graph.code_norms, graph.adj_bottom, qc, squared_norms(qc), ep[:, None], ef, max_iters,
-            graph.sentinel, expand,
-        )
+        with annotate("expann.search.traverse"):
+            beam_ids, _, ncomp = beam_search(
+                graph.codes, graph.code_norms, graph.adj_bottom, qc, squared_norms(qc), ep[:, None], ef, max_iters,
+                graph.sentinel, expand,
+            )
         ids, d = rerank(graph, q, beam_ids, k)
         return ids, d, ncomp
     if not use_packed:
-        beam_ids, beam_d, ncomp = beam_search(*args)
+        with annotate("expann.search.traverse"):
+            beam_ids, beam_d, ncomp = beam_search(*args)
         return beam_ids[:, :k], beam_d[:, :k], ncomp
     if graph.packed is None:
         raise ValueError("index has no packed-neighbour arrays")
-    beam_ids, _, ncomp = beam_search(
-        *args, packed=graph.packed, packed_norms=graph.packed_norms, packed_ids=graph.packed_ids,
-        packed_topt=packed_topt,
-    )
+    with annotate("expann.search.traverse"):
+        beam_ids, _, ncomp = beam_search(
+            *args, packed=graph.packed, packed_norms=graph.packed_norms, packed_ids=graph.packed_ids,
+            packed_topt=packed_topt,
+        )
     ids, d = rerank(graph, q, beam_ids, k)
     return ids, d, ncomp
 
@@ -370,10 +391,12 @@ def fused_query_batch(
         q = q.float() * q_inv_scale
     q = q.float()
     EF = ef_cap + ((-ef_cap) % 128)
-    bd0, bi0, ncomp_seed = entry_beam(graph, q, EF, seeds)
-    beam_ids, _, ncomp, _ = fused_search(
-        graph.packed, graph.packed_norms, graph.packed_ids, kernel_query(graph, q), bd0, bi0,
-        ef=min(max(int(ef), k), EF), expand=expand, cand=cand,
-    )
+    with annotate("expann.search.entry"):
+        bd0, bi0, ncomp_seed = entry_beam(graph, q, EF, seeds)
+    with annotate("expann.search.traverse"):
+        beam_ids, _, ncomp, _ = fused_search(
+            graph.packed, graph.packed_norms, graph.packed_ids, kernel_query(graph, q), bd0, bi0,
+            ef=min(max(int(ef), k), EF), expand=expand, cand=cand,
+        )
     ids, d = rerank(graph, q, beam_ids, k)
     return ids, d, ncomp + ncomp_seed

@@ -79,6 +79,7 @@ from expann_tpu_torch.models.prune import prune_candidates
 from expann_tpu_torch.ops.distance import LANE, pad_dim, squared_norms
 from expann_tpu_torch.ops.topk import K_MAX, flat_topk
 from expann_tpu_torch.parallel.sharded import as_mesh, merge_lists, table, table_parts
+from expann_tpu_torch.utils.profiling import StageClock, no_stage
 
 INF = float("inf")
 FLAT_BLOCK = 1024  # segment alignment: the JAX flat kernel's corpus block
@@ -194,29 +195,36 @@ def _write_rows(adj, counts, rows, sel_ids) -> None:
 def _dist_wave_step(
     vectors, norms, adj, counts, wq, wave_gids, frontier: int, C: int, cap: int, cfg: BuildConfig,
     overflow_rows: int, reverse: bool = True, xs=None, topk_mode: str = "count",
+    clock: Optional[StageClock] = None,
 ) -> None:
     """One insert wave (distbuild.py:79): candidates (dense, or flat scans
     of the shards' flat corpora ``xs`` when given), the prune, the forward
     rows, and with ``reverse`` the reverse edges and the overflow prune.
-    Updates ``adj`` and ``counts`` in place."""
+    Updates ``adj`` and ``counts`` in place.  ``clock``, when given, times
+    the stages ``scan``, ``prune`` and ``rows`` (the row writes, and with
+    ``reverse`` the reverse edges and the overflow prune)."""
+    stage = clock.stage if clock is not None else no_stage
     sentinel = vectors.shape[0] - 1
-    if xs is None:
-        cand_ids, cand_d = _dense_candidates(vectors, norms, wq, wave_gids, frontier, C, cfg)
-        if cfg.ortho_count > 1:
+    with stage("scan"):
+        if xs is None:
+            cand_ids, cand_d = _dense_candidates(vectors, norms, wq, wave_gids, frontier, C, cfg)
+            if cfg.ortho_count > 1:
 
-            def penalized(chosen, chosen_valid):
-                return _dense_candidates(vectors, norms, wq, wave_gids, frontier, C, cfg, chosen, chosen_valid)
+                def penalized(chosen, chosen_valid):
+                    return _dense_candidates(vectors, norms, wq, wave_gids, frontier, C, cfg, chosen, chosen_valid)
 
-            cand_ids, cand_d = ortho_union(cand_ids, cand_d, cfg.ortho_count, penalized, C, sentinel)
-    else:
-        if cfg.ortho_count > 1:
-            raise ValueError("ortho_count > 1 needs dense candidates: the flat scan ranks raw distances only")
-        cand_ids, cand_d = _sharded_flat_candidates(xs, table_parts(vectors)[1], wq, wave_gids, C, topk_mode)
-    sel_ids, sel_d = prune_candidates(vectors, norms, cand_ids, cand_d, cap, *_prune_args(cfg), sentinel)
-    _write_rows(adj, counts, wave_gids.long(), sel_ids)
-    if reverse:
-        _reverse_scatter(adj, counts, wave_gids, sel_ids, sel_d)
-        _prune_fullest(vectors, norms, adj, counts, cap, cfg, overflow_rows)
+                cand_ids, cand_d = ortho_union(cand_ids, cand_d, cfg.ortho_count, penalized, C, sentinel)
+        else:
+            if cfg.ortho_count > 1:
+                raise ValueError("ortho_count > 1 needs dense candidates: the flat scan ranks raw distances only")
+            cand_ids, cand_d = _sharded_flat_candidates(xs, table_parts(vectors)[1], wq, wave_gids, C, topk_mode)
+    with stage("prune"):
+        sel_ids, sel_d = prune_candidates(vectors, norms, cand_ids, cand_d, cap, *_prune_args(cfg), sentinel)
+    with stage("rows"):
+        _write_rows(adj, counts, wave_gids.long(), sel_ids)
+        if reverse:
+            _reverse_scatter(adj, counts, wave_gids, sel_ids, sel_d)
+            _prune_fullest(vectors, norms, adj, counts, cap, cfg, overflow_rows)
 
 
 def _dist_reverse_step(vectors, norms, adj, counts, wave_gids, cap: int, cfg: BuildConfig, overflow_rows: int) -> None:
@@ -336,7 +344,10 @@ def build_distributed(
     Returns the index, on ``mesh[0]``, and stats: ``n_shards``,
     ``n_shard``, ``candidates``, ``waves`` (the JAX keys) and ``seconds`` per
     stage (bootstrap, forward, reverse, cap_sweep, upper), each read after
-    a device sync."""
+    a device sync, and the forward stage's parts ``scan``, ``prune`` and
+    ``rows``, summed over the waves: CUDA events on ``mesh[0]``'s stream at
+    each part's start and after the last wave (the host clock on the CPU),
+    so the three tile the forward stage with no host sync added."""
     if mode not in ("oneshot", "incremental"):
         raise ValueError(f"mode={mode!r}: 'oneshot' or 'incremental'")
     if candidates not in ("auto", "dense", "flat"):
@@ -391,16 +402,19 @@ def build_distributed(
 
     # ---- phase 1: candidates, prune, forward rows ----
     t0 = time.perf_counter()
+    clock = StageClock(dev0)
     for w, (i, gids) in enumerate(waves(n0)):
         _dist_wave_step(
             vectors, norms, adj, counts, vectors[gids.long()], gids,
             i if mode == "incremental" else n, C, cap, cfg, overflow_rows,
-            reverse=mode == "incremental", xs=xs, topk_mode=topk_mode,
+            reverse=mode == "incremental", xs=xs, topk_mode=topk_mode, clock=clock,
         )
         if verbose and w % 32 == 0:
             print(f"distributed build fwd: {i}/{n} {time.perf_counter() - t0:.1f}s", flush=True)
+    clock.stop()
     _sync(*mesh)
     seconds["forward"] = time.perf_counter() - t0
+    seconds.update(clock.seconds())
     del xs
 
     # ---- phase 2 (one-shot): reverse edges from the final forward rows ----

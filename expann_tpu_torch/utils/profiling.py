@@ -6,12 +6,23 @@ external callgrind / perf toggles around the query loop
 (src/basic_bench.h:76-77, 128-129).  Here:
 
   * the stat counters live on the engines (``num_distcomps``,
-    ``num_distcomps_compressed``, ``total_query_time_ns``);
+    ``num_distcomps_compressed``);
+  * ``annotate(name)`` is the span: while a ``torch.profiler`` profile
+    records, it is ``torch.profiler.record_function(name)``,
+    a ``user_annotation`` record on the profiler's clock, the clock of the
+    device records; otherwise it is one flag check and a shared
+    ``nullcontext``.  There is no switch of its own: a region is traced by
+    running it under ``trace()`` or any other profiler, and the spans live
+    in the profiler's memory until it exports.  The package's spans are
+    named ``expann.<layer>.<what>`` (engine, search, build) and
+    ``expann.sync``, one a blocking device read;
+  * ``StageClock`` splits a build phase into stage seconds that tile it:
+    CUDA events on the device's stream (no host sync), the host clock on
+    the CPU, each stage inside an ``expann.build.<stage>`` span;
   * ``trace(...)`` wraps a region in a ``torch.profiler`` trace, with the
     card's kernel records on a CUDA device, and writes it as a Chrome trace
     (``trace_<ns>.json``, readable by ``chrome://tracing``, Perfetto, or
     ``expann_tpu_torch.tools.perf_trace.parse_trace``);
-  * ``annotate(name)`` names a region inside a trace;
   * ``event_ms(fn, reps)`` times a callable on the card with CUDA events;
   * ``card_name()`` names the card and its power limit (nvidia-smi).
 """
@@ -25,6 +36,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 DEFAULT_LOG_DIR = str(Path(__file__).resolve().parents[2] / "build" / "trace")
 HOLD_CYCLES = 40_000_000  # ~20 ms of the card's clock
@@ -53,9 +65,60 @@ def trace(log_dir: str = DEFAULT_LOG_DIR, enabled: bool = True, device="cuda"):
         raise RuntimeError("torch.profiler recorded no CUDA activity: the card was not traced")
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Name a region inside a trace (a ``user_annotation`` event)."""
+    """The span ``name`` (a ``user_annotation`` record) while a profiler
+    records; the shared null context otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
     return torch.profiler.record_function(name)
+
+
+class StageClock:
+    """Seconds of the stages of one phase, tiling it: ``with
+    clock.stage(name):`` marks the start of ``name``, which ends the stage
+    before it, and opens the span ``expann.build.<name>``; ``stop()`` marks
+    the end of the last stage.  On a CUDA device a mark is an event recorded
+    on the device's current stream, so marking adds no host sync, and
+    ``seconds()`` is read after the caller's own synchronise; on the CPU a
+    mark is the host clock.  A stage that runs more than once is summed."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.marks: list = []  # (stage name, or None for a stop; event or seconds)
+
+    def _mark(self, name) -> None:
+        if self.device.type == "cuda":
+            at = torch.cuda.Event(enable_timing=True)
+            at.record(torch.cuda.current_stream(self.device))
+        else:
+            at = time.perf_counter()
+        self.marks.append((name, at))
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        self._mark(name)
+        with annotate(f"expann.build.{name}"):
+            yield
+
+    def stop(self) -> None:
+        self._mark(None)
+
+    def seconds(self) -> dict:
+        """Seconds a stage, from each mark to the next."""
+        out: dict = {}
+        for (name, a), (_, b) in zip(self.marks, self.marks[1:]):
+            if name is not None:
+                dt = a.elapsed_time(b) * 1e-3 if self.device.type == "cuda" else b - a
+                out[name] = out.get(name, 0.0) + dt
+        return out
+
+
+def no_stage(name: str):
+    """``StageClock.stage`` of a phase that keeps no stage seconds."""
+    return _OFF
 
 
 def card_name() -> str:

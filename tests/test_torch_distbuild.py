@@ -106,7 +106,7 @@ def test_distributed_build_tracks_jax(data, jax_graphs, mode, ortho_count):
         # measured: 44% of rows differ from ortho_count=1's; gate: at least 10%
         assert (tg.adj_bottom == plain.adj_bottom).all(1).float().mean() < 0.9
     assert {k: v for k, v in tstats.items() if k != "seconds"} == jstats
-    assert set(tstats["seconds"]) == {"bootstrap", "forward", "reverse", "cap_sweep", "upper"}
+    assert set(tstats["seconds"]) == {"bootstrap", "forward", "scan", "prune", "rows", "reverse", "cap_sweep", "upper"}
     assert tg.starting_vertex == int(jg.starting_vertex) and len(tg.layers) == len(jg.layers)
     same = (tg.adj_bottom.numpy() == np.asarray(jg.adj_bottom)).all(1).mean()
     assert same >= 0.95, same
