@@ -63,6 +63,10 @@ class GraphIndex:
     # models/search.fused_query_batch), sentinel-padded to a multiple of 128
     entry_members: Optional[torch.Tensor] = None  # (n_l_pad,) int32
     entry_members_n: int = 0  # real (unpadded) member count
+    # the packed beam's captured CUDA graphs (models/search.py), which read
+    # the packed arrays: they live and go with them, and a copy made by
+    # ``dataclasses.replace`` starts without them
+    beam_graphs: Optional[dict] = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     @property
     def n(self) -> int:
@@ -73,7 +77,9 @@ class GraphIndex:
         return self.vectors.shape[0] - 1
 
     def drop_packed(self) -> None:
-        """Forget the packed layout (it is rebuilt on the next query)."""
+        """Forget the packed layout (it is rebuilt on the next query) and
+        the captured beams that read it."""
+        self.beam_graphs = None
         self.packed = self.packed_norms = self.packed_ids = None
         self.packed_codes = self.packed_code_norms = self.packed_center = self.packed_scale = None
 

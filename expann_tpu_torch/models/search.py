@@ -16,25 +16,31 @@ layers (the reference's ``_query_k`` flow, src/antitopo_engine.h:853-928):
     ``use_packed``), and merge by a stable sort.  The packed route reranks
     the final beam in exact f32; the gather route scores in exact f32
     already, or, with ``compressed``, gathers the uint8 codes and reranks.
-    One host sync per iteration (``done.all()``).  ``beam_search`` is also
-    the wave builders' construction search (models/wavebuild.py), with the
-    ortho-penalized score for their extra passes.
+    One host sync per iteration (``done.all()``), except on the packed
+    route on a CUDA device, which replays ``BEAM_BLOCK`` iterations
+    captured as a CUDA graph and syncs once a replay.  ``beam_search`` is
+    also the wave builders' construction search (models/wavebuild.py), with
+    the ortho-penalized score for their extra passes.
 
 Spans (``utils/profiling.annotate``, recorded only under a profiler):
 ``expann.search.entry`` (the entry scan or descent of the fused route),
 ``expann.search.descend``, ``expann.search.traverse`` (the fused launch, or
 the whole ``beam_search`` of the per-iteration route),
+``expann.search.replay`` (a replay of the captured beam),
 ``expann.search.rerank``, and ``expann.sync`` around each blocking device
-read: one a descent step and one a beam iteration.
+read: one a descent step and one a beam iteration or replay.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import dataclasses
+import functools
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from expann_tpu_torch.models.graph import GraphIndex
+from expann_tpu_torch.ops import _kernels
 from expann_tpu_torch.ops.distance import batched_neighbour_dist2, squared_norms
 from expann_tpu_torch.ops.fused import fused_search
 from expann_tpu_torch.ops.packed import packed_score
@@ -179,6 +185,162 @@ def _earlier_dup(ids: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(rep).scatter_(1, order, rep)
 
 
+@dataclasses.dataclass
+class BeamState:
+    """The beams of a batch, which ``beam_step`` updates in place: ``d``
+    ``(B, ef)`` f32 ascending, ``ids`` ``(B, ef)`` int32, ``exp`` ``(B, ef)``
+    bool (expanded), ``ncomp`` ``(B,)`` int32 distance computations and
+    ``done`` ``(B,)`` bool."""
+
+    d: torch.Tensor
+    ids: torch.Tensor
+    exp: torch.Tensor
+    ncomp: torch.Tensor
+    done: torch.Tensor
+
+    def fields(self) -> Tuple[torch.Tensor, ...]:
+        return (self.d, self.ids, self.exp, self.ncomp, self.done)
+
+
+def beam_step(s: BeamState, neighbours: Callable, ef: int, E: int, sentinel: int) -> None:
+    """One iteration of the beam, in place on ``s``: select the ``E`` best
+    unexpanded entries by (d, position); a query is done once the best one
+    is worse than its beam's last entry or not finite; score the selected
+    nodes' neighbours, ``neighbours(sel) -> (d, ids, computations)``, mask
+    repeats and merge by a stable sort, keeping ``ef``.  A done query is
+    inert: it selects only the sentinel, whose neighbours are all at +inf,
+    and the stable merge keeps its (ascending) beam as it is."""
+    masked = torch.where(s.exp, INF, s.d)
+    # the E best by (d, position): lax.top_k's tie order
+    best_pos = torch.sort(masked, dim=1, stable=True).indices[:, :E]
+    sel_d = masked.gather(1, best_pos)
+    s.done |= (sel_d[:, 0] > s.d[:, -1]) | torch.isinf(sel_d[:, 0])
+    valid = torch.isfinite(sel_d) & ~s.done[:, None]
+    sel = torch.where(valid, s.ids.gather(1, best_pos), sentinel)
+    exp = s.exp | torch.zeros_like(s.exp).scatter_(1, best_pos, valid)
+    nd, nbrs, comps = neighbours(sel)
+    s.ncomp += comps
+    # mask a neighbour whose id is in the beam (sentinel included) or
+    # earlier in the block: with the beam ahead of the block, an id
+    # repeated earlier in the row (the beam's own sentinel repeats are
+    # dropped by the slice)
+    cand = torch.cat([s.ids, nbrs], 1)
+    dup = _earlier_dup(cand)[:, ef:]
+    nd = torch.where(dup, INF, nd)
+    all_d, order = torch.sort(torch.cat([s.d, nd], 1), dim=1, stable=True)
+    order = order[:, :ef]
+    s.d.copy_(all_d[:, :ef])
+    torch.gather(cand, 1, order, out=s.ids)
+    torch.gather(torch.cat([exp, torch.zeros_like(dup)], 1), 1, order, out=s.exp)
+
+
+def _packed_neighbours(packed, packed_norms, packed_ids, topt: int, q, qn, sentinel: int) -> Callable:
+    """``neighbours`` of ``beam_step`` over the packed blocks: the block
+    scorer's ``(B, E * (topt or R_tile))`` distances and ids, and RS
+    computations per selected non-sentinel node."""
+    R = packed.shape[1]
+
+    def neighbours(sel):
+        raw_d, nbrs = packed_score(packed, packed_norms, packed_ids, sel, q, topt)
+        return raw_d + qn[:, None], nbrs, R * (sel != sentinel).sum(1, dtype=torch.int32)
+
+    return neighbours
+
+
+# Iterations a replay of the captured beam runs before the host reads
+# ``done`` (the sweep over 1, 2, 4, 8 on the card: PERF.md §6), and the
+# captured beams an index keeps at once (each holds its static buffers and
+# the device memory of its intermediates): a batch is captured at the
+# power of two at or above its size, so one ``(ef, E, topt)`` takes 7
+# graphs for the chunks of 1 to 64 queries that the engine sends down
+# this route at its default ``fused_qt`` of 128.
+BEAM_BLOCK = 4
+GRAPH_CACHE = 8
+
+
+class _BeamGraph:
+    """``BEAM_BLOCK`` iterations of the packed beam captured as one CUDA
+    graph over static buffers of ``B`` rows: the query ``q`` / ``qn`` and a
+    ``BeamState``, which a call loads, replays and reads back.  ``step``
+    runs one iteration eagerly on the same buffers."""
+
+    def __init__(self, packed, packed_norms, packed_ids, topt: int, B: int, ef: int, E: int, sentinel: int):
+        dev = packed.device
+        self.block, self.sentinel = BEAM_BLOCK, sentinel
+        self.q = torch.zeros((B, packed.shape[2]), dtype=torch.float32, device=dev)
+        self.qn = torch.zeros((B,), dtype=torch.float32, device=dev)
+        self.state = BeamState(
+            torch.empty((B, ef), device=dev), torch.empty((B, ef), dtype=torch.int32, device=dev),
+            torch.empty((B, ef), dtype=torch.bool, device=dev), torch.empty((B,), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.bool, device=dev),
+        )
+        # an all-sentinel beam, done at its first step: the warm-up reads
+        # only the sentinel's blocks
+        self._inert(0)
+        neighbours = _packed_neighbours(packed, packed_norms, packed_ids, topt, self.q, self.qn, sentinel)
+        self.step = functools.partial(beam_step, self.state, neighbours, ef, E, sentinel)
+        self.graph = self._capture(dev)
+
+    def _capture(self, dev):
+        # one eager step first, on a side stream: the kernels' lazy set-up
+        # (module load, shared-memory attribute) stays out of the capture
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(self.block):
+                    self.step()
+        return graph
+
+    def _inert(self, b: int) -> None:
+        """Rows ``b:`` as done all-sentinel beams: every step leaves them as
+        they are."""
+        s = self.state
+        s.d[b:], s.ids[b:], s.exp[b:], s.ncomp[b:], s.done[b:] = INF, self.sentinel, False, 0, True
+
+    def load(self, q, qn, state: BeamState) -> None:
+        """The call's ``b`` queries and entry beams into the first ``b``
+        rows, the rest inert."""
+        b = q.shape[0]
+        self.q[:b].copy_(q)
+        self.qn[:b].copy_(qn)
+        for dst, src in zip(self.state.fields(), state.fields()):
+            dst[:b].copy_(src)
+        if b < self.q.shape[0]:
+            self._inert(b)
+
+    def replay(self) -> None:
+        with annotate("expann.search.replay"):
+            self.graph.replay()
+        _kernels.launches["packed_score"] += self.block  # one K4 a captured step
+
+
+def _replays(q, packed, ortho_chosen) -> bool:
+    """Whether ``beam_search`` replays captured iterations: the packed
+    route on a CUDA device."""
+    return q.is_cuda and packed is not None and ortho_chosen is None
+
+
+def _beam_graph(graphs: dict, packed, packed_norms, packed_ids, topt: int, B: int, ef: int, E: int,
+                sentinel: int) -> _BeamGraph:
+    """The captured beam of ``B`` queries (rounded up to a power of two)
+    over these packed arrays, from ``graphs``, the cache that goes with
+    them (``GraphIndex.beam_graphs``), captured on first use; the least
+    recently used one goes beyond ``GRAPH_CACHE``."""
+    key = (1 << (B - 1).bit_length(), ef, E, topt)
+    g = graphs.pop(key, None)
+    if g is None:
+        while len(graphs) >= GRAPH_CACHE:
+            graphs.pop(next(iter(graphs)))
+        g = _BeamGraph(packed, packed_norms, packed_ids, topt, key[0], ef, E, sentinel)
+    graphs[key] = g
+    return g
+
+
 def beam_search(
     data: torch.Tensor,
     data_norms: torch.Tensor,
@@ -199,9 +361,10 @@ def beam_search(
     ortho_factor: float = 0.5,
     ortho_bias: float = 0.0,
     iters: Optional[List[int]] = None,
+    graphs: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Batched best-first beam search on the bottom layer, one iteration
-    per loop step (search.py ``beam_search`` of the JAX package).
+    """Batched best-first beam search on the bottom layer, one ``beam_step``
+    an iteration (search.py ``beam_search`` of the JAX package).
 
     ``data``/``data_norms`` ``(N+1, D)`` / ``(N+1,)`` with the +inf-norm
     sentinel row, ``adj`` ``(N+1, R)``, ``q``/``qn`` ``(B, D)`` / ``(B,)``,
@@ -214,25 +377,30 @@ def beam_search(
     scored by ``_gather_score_ortho`` (the wave builder's penalized passes;
     not with ``packed``).
 
-    Per iteration and query: select the ``E = min(expand, ef)`` best
-    unexpanded entries by (d, position); the query is done once the best
-    one is worse than the beam's last entry or not finite (the reference's
-    break rule, src/antitopo_engine.h:588-590); score the selected nodes'
-    neighbours; mask those whose id is anywhere in the beam (sentinel
+    ``beam_step`` gives the iteration: ``E = min(expand, ef)`` selections a
+    query, the reference's break rule (src/antitopo_engine.h:588-590), a
+    neighbour masked when its id is anywhere in the beam (sentinel
     included) or repeated earlier in the block (the JAX package skips the
     second test for one full adjacency row, which holds no id twice, so the
-    masks agree); merge by a stable sort on d and keep
-    ``ef``.  A done query is inert.  The loop runs while a query is not done
-    and fewer than ``max_iters`` iterations have run.
+    masks agree).  The loop runs while a query is not done and fewer than
+    ``max_iters`` iterations have run, and reads ``done`` on the host once
+    an iteration; on the packed route on a CUDA device, given ``graphs``,
+    the cache of captured beams that goes with the packed arrays
+    (``GraphIndex.beam_graphs``), it replays ``BEAM_BLOCK`` captured
+    iterations and reads ``done`` once a replay, then steps eagerly where
+    fewer than ``BEAM_BLOCK`` are left before ``max_iters``.  The
+    iterations past the last query's end, and the rows that pad the batch
+    to the captured size, are inert, so both give the same beams and
+    counts.
 
     Returns ``(beam_ids, beam_d, ncomp)``: beams ``(B, ef)`` ascending,
     sentinel / +inf padded, and per-query distance computations ``(B,)``:
     ``E0``, plus RS per selected non-sentinel node (packed) or the count of
     non-sentinel neighbours (gather).  ``iters``, when given, receives the
-    iterations the loop ran."""
+    iterations the loop ran (on the replayed route a multiple of
+    ``BEAM_BLOCK`` but for an eager tail)."""
     B, E0 = ep_ids.shape
     dev = q.device
-    R = packed.shape[1] if packed is not None else adj.shape[1]
     ep_ids = ep_ids.to(torch.int32)
     if ortho_chosen is not None:
         if packed is not None:
@@ -254,53 +422,48 @@ def beam_search(
     pad = max(ef - E0, 0)
     beam_ids = torch.cat([ep_ids, torch.full((B, pad), sentinel, dtype=torch.int32, device=dev)], 1)
     beam_d, order = torch.sort(torch.cat([ep_d, torch.full((B, pad), INF, device=dev)], 1), dim=1, stable=True)
-    beam_d, beam_ids = beam_d[:, :ef], beam_ids.gather(1, order[:, :ef])
-    beam_exp = torch.zeros((B, ef), dtype=torch.bool, device=dev)
-    ncomp = torch.full((B,), E0, dtype=torch.int32, device=dev)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    s = BeamState(
+        beam_d[:, :ef], beam_ids.gather(1, order[:, :ef]), torch.zeros((B, ef), dtype=torch.bool, device=dev),
+        torch.full((B,), E0, dtype=torch.int32, device=dev), torch.zeros((B,), dtype=torch.bool, device=dev),
+    )
     E = max(1, min(expand, ef))
 
-    # a query is done once an iteration finds nothing to expand: the loop
-    # reads that after each iteration (a fresh beam is never done)
-    it = 0
-    while it < max_iters and B > 0:
-        masked = torch.where(beam_exp, INF, beam_d)
-        # the E best by (d, position): lax.top_k's tie order
-        best_pos = torch.sort(masked, dim=1, stable=True).indices[:, :E]
-        sel_d = masked.gather(1, best_pos)
-        done = done | (sel_d[:, 0] > beam_d[:, -1]) | torch.isinf(sel_d[:, 0])
-        valid = torch.isfinite(sel_d) & ~done[:, None]
-        sel = torch.where(valid, beam_ids.gather(1, best_pos), sentinel)
-        beam_exp = beam_exp | torch.zeros_like(beam_exp).scatter_(1, best_pos, valid)
-
+    replayed = graphs is not None and _replays(q, packed, ortho_chosen) and B > 0
+    if replayed:
+        g = _beam_graph(graphs, packed, packed_norms, packed_ids, packed_topt, B, ef, E, sentinel)
+        g.load(q, qn, s)
+        s, block, run_block, step = g.state, g.block, g.replay, g.step
+    else:
         if packed is not None:
-            raw_d, nbrs = packed_score(packed, packed_norms, packed_ids, sel, q, packed_topt)
-            nd = raw_d + qn[:, None]
-            ncomp += R * (sel != sentinel).sum(1, dtype=torch.int32)
+            neighbours = _packed_neighbours(packed, packed_norms, packed_ids, packed_topt, q, qn, sentinel)
         else:
-            nbrs = adj[sel.long()].reshape(B, E * R)
-            nd = score(nbrs)
-            ncomp += (nbrs != sentinel).sum(1, dtype=torch.int32)
-        # mask a neighbour whose id is in the beam (sentinel included) or
-        # earlier in the block: with the beam ahead of the block, an id
-        # repeated earlier in the row (the beam's own sentinel repeats are
-        # dropped by the slice)
-        dup = _earlier_dup(torch.cat([beam_ids, nbrs], 1))[:, ef:]
-        nd = torch.where(dup, INF, nd)
 
-        all_d, order = torch.sort(torch.cat([beam_d, nd], 1), dim=1, stable=True)
-        order = order[:, :ef]
-        beam_d = all_d[:, :ef]
-        beam_ids = torch.cat([beam_ids, nbrs], 1).gather(1, order)
-        beam_exp = torch.cat([beam_exp, torch.zeros_like(dup)], 1).gather(1, order)
+            def neighbours(sel):
+                nbrs = adj[sel.long()].reshape(B, -1)
+                return score(nbrs), nbrs, (nbrs != sentinel).sum(1, dtype=torch.int32)
+
+        step = functools.partial(beam_step, s, neighbours, ef, E, sentinel)
+        block, run_block = 1, step
+
+    # a query is done once an iteration finds nothing to expand: the loop
+    # reads that after each block of iterations (a fresh beam is never done)
+    it = 0
+    finished = B == 0
+    while not finished and it + block <= max_iters:
+        run_block()
+        it += block
+        with annotate("expann.sync"):
+            finished = bool(s.done.all())
+    while not finished and it < max_iters:
+        step()
         it += 1
         with annotate("expann.sync"):
-            finished = bool(done.all())
-        if finished:
-            break
+            finished = bool(s.done.all())
     if iters is not None:
         iters.append(it)
-    return beam_ids, beam_d, ncomp
+    if replayed:  # the static buffers serve the next call
+        return s.ids[:B].clone(), s.d[:B].clone(), s.ncomp[:B].clone()
+    return s.ids, s.d, s.ncomp
 
 
 def query_batch(
@@ -352,10 +515,12 @@ def query_batch(
         return beam_ids[:, :k], beam_d[:, :k], ncomp
     if graph.packed is None:
         raise ValueError("index has no packed-neighbour arrays")
+    if graph.beam_graphs is None:
+        graph.beam_graphs = {}
     with annotate("expann.search.traverse"):
         beam_ids, _, ncomp = beam_search(
             *args, packed=graph.packed, packed_norms=graph.packed_norms, packed_ids=graph.packed_ids,
-            packed_topt=packed_topt,
+            packed_topt=packed_topt, graphs=graph.beam_graphs,
         )
     ids, d = rerank(graph, q, beam_ids, k)
     return ids, d, ncomp

@@ -10,7 +10,9 @@ reuse it.  The library is bound with ``ctypes``: device pointers from
 code returned by every launch.
 
 ``launches`` counts kernel launches per wrapper; each wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else, except under a CUDA graph's
+capture, where it launches nothing: a replay of the graph adds the
+launches it makes (models/search.py ``_BeamGraph.replay``).
 """
 
 from __future__ import annotations

@@ -204,7 +204,9 @@ def packed_score_cuda(
             _kernels.stream_ptr(device),
         )
     _kernels.check(code, "packed_score")
-    _kernels.launches["packed_score"] += 1
+    # a captured call launches nothing: its replays count their launches
+    if not torch.cuda.is_current_stream_capturing():
+        _kernels.launches["packed_score"] += 1
     return out_d, out_i
 
 

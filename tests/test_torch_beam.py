@@ -1,11 +1,14 @@
 """The port's per-iteration graph route against the JAX package: the packed
 block scorer (K4's plain version against the Pallas kernel in interpret
 mode), ``beam_search`` in gather and packed mode, ``query_batch``, the
-engines on that route, and the chunk routing rule."""
+engines on that route, and the chunk routing rule; and the replayed route's
+blocks of iterations against one iteration a read."""
 
 import dataclasses
 import functools
+import gc
 import inspect
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +26,7 @@ from expann_tpu.utils.persist import load_index as j_load_index
 from expann_tpu.utils.persist import save_index as j_save_index
 from expann_tpu_torch.data.loader import load_synthetic_uniform_sphere_points
 from expann_tpu_torch.models import antitopo as t_antitopo
+from expann_tpu_torch.models import search as t_search
 from expann_tpu_torch.models.antitopo import AntitopoConfig, AntitopoEngine, route_fused
 from expann_tpu_torch.models.brute_force import BruteForceEngine
 from expann_tpu_torch.models.search import beam_search, query_batch
@@ -222,6 +226,116 @@ def test_beam_search_matches_jax(data, index, mode, expand):
     for row in t_ids:
         real = row[row < N]
         assert len(set(real.tolist())) == len(real)
+
+
+class _EagerBlock(t_search._BeamGraph):
+    """The captured block as ``BEAM_BLOCK`` eager steps on the same static
+    buffers: the replayed route's loop where nothing can be captured."""
+
+    def _capture(self, dev):
+        return None
+
+    def replay(self):
+        for _ in range(t_search.BEAM_BLOCK):
+            self.step()
+
+
+@pytest.mark.parametrize("max_iters", [11, 8 * EF + 19])
+@pytest.mark.parametrize("E", [1, 2])
+@pytest.mark.parametrize("topt", [0, 8])
+@pytest.mark.parametrize("U", [1, 2, 4, 8])
+def test_blocks_of_iterations_match_one_read_an_iteration(data, index, monkeypatch, U, topt, E, max_iters):
+    """The replayed route's loop (blocks of U iterations, one ``done`` read a
+    block, eager steps where fewer than U are left before ``max_iters``)
+    over the packed plain scorer: the beams, distances and counts of one
+    read an iteration, bit for bit, since a done query is inert; the
+    iterations run are the last query's end rounded up to a block, or the
+    tail's.  ``max_iters`` 11 cuts every beam short; 339 is no multiple of
+    U and lets every query end."""
+    _, q, _ = data
+    _, _, tg = index
+    rng = np.random.default_rng(U + topt + E)
+    qp = torch.from_numpy(np.pad(q, ((0, 0), (0, 128 - D))))
+    ep = torch.from_numpy(rng.integers(0, N, (q.shape[0], 1)).astype(np.int32))
+    args = (tg.vectors, tg.norms, tg.adj_bottom, qp, squared_norms(qp), ep, EF, max_iters, N)
+    kw = dict(expand=E, packed=tg.packed, packed_norms=tg.packed_norms, packed_ids=tg.packed_ids, packed_topt=topt)
+    one, blocks = [], []
+    want = beam_search(*args, **kw, iters=one)
+    monkeypatch.setattr(t_search, "BEAM_BLOCK", U)
+    monkeypatch.setattr(t_search, "_BeamGraph", _EagerBlock)
+    monkeypatch.setattr(t_search, "_replays", lambda q, packed, ortho_chosen: packed is not None)
+    graphs = {}
+    got = beam_search(*args, **kw, iters=blocks, graphs=graphs)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    rounded = -(-one[0] // U) * U
+    assert blocks[0] == (rounded if rounded <= max_iters else one[0]), (one, blocks)
+    assert (one[0] == max_iters) == (max_iters == 11)
+    # the results are the caller's, not the static buffers the next call loads
+    (g,) = graphs.values()
+    assert {t.data_ptr() for t in got}.isdisjoint(t.data_ptr() for t in g.state.fields())
+    again = beam_search(*args, **kw, graphs=graphs)
+    assert len(graphs) == 1 and all(torch.equal(a, b) for a, b in zip(again, want))
+
+
+@pytest.mark.parametrize("U", [1, 4])
+def test_batches_share_a_padded_capture(data, index, monkeypatch, U):
+    """Batches of 7, 5, 8, 5, 3 and 1 queries through one cache, the odd
+    calls cut short by ``max_iters`` 11: a batch is captured at the power of
+    two at or above it (8, 4 and 1 here), and the rows past it are reset to
+    inert beams on every load, so a row that the last call left unfinished
+    neither changes the lists (the eager loop's, bit for bit) nor keeps the
+    loop running (its iterations are the eager loop's rounded up to a
+    block)."""
+    _, q, _ = data
+    _, _, tg = index
+    rng = np.random.default_rng(U)
+    qp = torch.from_numpy(np.pad(q, ((0, 0), (0, 128 - D))))
+    kw = dict(expand=2, packed=tg.packed, packed_norms=tg.packed_norms, packed_ids=tg.packed_ids, packed_topt=8)
+    calls = []
+    for i, b in enumerate((7, 5, 8, 5, 3, 1)):
+        start = int(rng.integers(0, q.shape[0] - b))
+        ep = torch.from_numpy(rng.integers(0, N, (b, 1)).astype(np.int32))
+        qb = qp[start : start + b]
+        calls.append((tg.vectors, tg.norms, tg.adj_bottom, qb, squared_norms(qb), ep, EF, 11 if i % 2 == 0 else 8 * EF + 19, N))
+    one = []
+    want = [beam_search(*args, **kw, iters=one) for args in calls]
+    monkeypatch.setattr(t_search, "BEAM_BLOCK", U)
+    monkeypatch.setattr(t_search, "_BeamGraph", _EagerBlock)
+    monkeypatch.setattr(t_search, "_replays", lambda q, packed, ortho_chosen: packed is not None)
+    graphs, blocks = {}, []
+    for args, w in zip(calls, want):
+        got = beam_search(*args, **kw, graphs=graphs, iters=blocks)
+        for a, b in zip(got, w):
+            assert a.shape == b.shape and torch.equal(a, b)
+        pad = list(graphs.values())[-1].state
+        b = args[3].shape[0]
+        assert bool((pad.ids[b:] == N).all() & (pad.ncomp[b:] == 0).all() & pad.done[b:].all())
+    assert [k[0] for k in graphs] == [8, 4, 1]
+    assert one[::2] == [11] * 3 and max(one[1::2]) < 8 * EF + 19 - U
+    assert blocks == [min(-(-n // U) * U, args[7]) for n, args in zip(one, calls)], (one, blocks)
+
+
+def test_captured_beams_go_with_the_packed_arrays(data, index, monkeypatch):
+    """``query_batch`` keeps the captured beams on the index it serves: a
+    copy made by ``dataclasses.replace`` starts without them, and
+    ``drop_packed`` frees them with the arrays they read."""
+    _, q, _ = data
+    _, _, tg = index
+    monkeypatch.setattr(t_search, "_BeamGraph", _EagerBlock)
+    monkeypatch.setattr(t_search, "_replays", lambda q, packed, ortho_chosen: packed is not None)
+    g = dataclasses.replace(tg)
+    qp = torch.from_numpy(np.pad(q[:3], ((0, 0), (0, 128 - D))))
+    want = query_batch(g, qp, K, EF, use_packed=True, packed_topt=8)
+    (captured,) = g.beam_graphs.values()
+    assert tg.beam_graphs is None and dataclasses.replace(g).beam_graphs is None
+    again = query_batch(g, qp, K, EF, use_packed=True, packed_topt=8)
+    assert all(torch.equal(a, b) for a, b in zip(again, want)) and list(g.beam_graphs.values()) == [captured]
+    ref = weakref.ref(captured)
+    del captured
+    g.drop_packed()
+    gc.collect()
+    assert g.beam_graphs is None and ref() is None
 
 
 @pytest.mark.parametrize("use_packed", [False, True])

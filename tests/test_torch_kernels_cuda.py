@@ -7,18 +7,27 @@ JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import gc
+import json
+import weakref
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
 
+from expann_tpu_torch.models import search
+from expann_tpu_torch.models.antitopo import AntitopoConfig, AntitopoEngine
 from expann_tpu_torch.models.build import BuildConfig, build_index
-from expann_tpu_torch.models.search import query_batch
+from expann_tpu_torch.models.search import beam_search, query_batch
 from expann_tpu_torch.ops import _kernels
 from expann_tpu_torch.ops.fused import fused_search, fused_search_cuda, fused_search_plain, ring_for, topt_for
 from expann_tpu_torch.ops.packed import build_packed, build_packed_i8, pack_blocks, packed_score, packed_score_plain
 from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain
 from expann_tpu_torch.parallel import distbuild
+from expann_tpu_torch.ops.distance import squared_norms
 from expann_tpu_torch.tools import perf_pallas_gather, probe_fused, probe_lanes, probe_step_overhead
+from expann_tpu_torch.utils import profiling
 from expann_tpu_torch.utils.persist import graph_from_numpy, graph_to_numpy
 
 pytestmark = pytest.mark.cuda
@@ -671,6 +680,137 @@ def test_query_batch_matches_cpu(dev, use_packed):
     overlap = np.mean([len(set(r) & set(s)) / 10 for r, s in zip(a, b)])
     assert overlap >= 0.99, overlap
     assert abs(na - nb) <= 0.01 * nb
+
+
+@pytest.fixture(scope="module")
+def beam_graph_case():
+    """A 3000-row graph (D=64 padded to 128) on the card with its bf16
+    packed layout, and 66 queries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal((3000, 64)).astype(np.float32)
+    q = np.pad(rng.standard_normal((66, 64)).astype(np.float32), ((0, 0), (0, 64)))
+    g = build_index(x, BuildConfig(M=16, ef_construction=80), "cuda")
+    g.packed, g.packed_norms, g.packed_ids = build_packed(g.vectors, g.norms, g.adj_bottom)
+    return x, torch.from_numpy(q).cuda(), g
+
+
+def _eager(monkeypatch):
+    monkeypatch.setattr(search, "_replays", lambda q, packed, ortho_chosen: False)
+
+
+@pytest.mark.parametrize("max_iters", [13, 8 * 64 + 16])
+@pytest.mark.parametrize("E", [1, 2])
+@pytest.mark.parametrize("topt", [0, 8])
+@pytest.mark.parametrize("B", [1, 8, 33])
+def test_beam_graph_identical_to_eager(beam_graph_case, monkeypatch, B, topt, E, max_iters):
+    """The packed beam replayed from its captured graph against the eager
+    loop on the same arrays: ids, distances and counts bit for bit, on the
+    call that captures and on a second call that replays over new queries
+    and entries; ``max_iters`` 13 is no multiple of the block, and 33
+    queries run in a capture of 64 rows."""
+    _, q, g = beam_graph_case
+    rng = np.random.default_rng(B + topt + E)
+    graphs = {}
+    kw = dict(expand=E, packed=g.packed, packed_norms=g.packed_norms, packed_ids=g.packed_ids, packed_topt=topt)
+    got = []
+    for start in (0, B):
+        qb = q[start : start + B]
+        ep = torch.from_numpy(rng.integers(0, g.n, (B, 1)).astype(np.int32)).cuda()
+        args = (g.vectors, g.norms, g.adj_bottom, qb, squared_norms(qb), ep, 64, max_iters, g.sentinel)
+        iters = []
+        got.append((args, beam_search(*args, **kw, iters=iters, graphs=graphs), iters[0]))
+        assert iters[0] % search.BEAM_BLOCK == 0 or iters[0] == max_iters
+    assert list(graphs) == [(1 << (B - 1).bit_length(), 64, E, topt)]
+    _eager(monkeypatch)
+    for args, replayed, it in got:
+        iters = []
+        want = beam_search(*args, **kw, iters=iters)
+        for a, b in zip(replayed, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert iters[0] <= it < iters[0] + search.BEAM_BLOCK
+
+
+def _engine_lists(eng, q, monkeypatch):
+    """The engine's lists of ``q`` replayed, then on the eager loop."""
+    replayed = eng.query_k_batch(q, 10)
+    with monkeypatch.context() as m:
+        _eager(m)
+        return replayed, eng.query_k_batch(q, 10)
+
+
+def test_beam_graph_recaptured_after_a_new_layout(beam_graph_case, monkeypatch):
+    """A captured beam is dropped with the packed arrays it reads: after
+    ``set_packed_dtype`` and after a second ``build`` the next small call
+    captures a fresh graph over the new arrays, and its lists equal the
+    eager loop's; the engine's graphs go with the engine."""
+    x, q, _ = beam_graph_case
+    qh = q[:8].cpu().numpy()
+    eng = AntitopoEngine(config=AntitopoConfig(M=16, ef_construction=80, ef_search=64, query_expand=2,
+                                               packed_topt=8, wave_size=512), device="cuda")
+    eng.store_many_vectors(x[:2500])
+    eng.build()
+    prev = None
+    for change in ("first", "packed_dtype", "build"):
+        if change == "packed_dtype":
+            eng.set_packed_dtype("i8")
+            assert eng.graph.beam_graphs is None
+            eng.query_k_batch(qh, 10)  # the gather beam over the s8 layout: no graph
+            assert eng.graph.beam_graphs is None
+            eng.set_packed_dtype("bf16")
+        elif change == "build":
+            eng.store_many_vectors(x[2500:])
+            eng.build()
+            assert eng.graph.beam_graphs is None
+        replayed, eager = _engine_lists(eng, qh, monkeypatch)
+        np.testing.assert_array_equal(replayed, eager)
+        (captured,) = eng.graph.beam_graphs.values()
+        assert captured is not prev, change
+        prev = captured
+    ref = weakref.ref(captured)
+    del eng, prev, captured
+    gc.collect()
+    assert ref() is None
+
+
+def test_traced_call_syncs_are_descent_steps_and_replays(beam_graph_case, tmp_path, monkeypatch):
+    """On a traced single-query engine call: one ``expann.sync`` a descent
+    step and one a replay (or an eager tail step), one
+    ``expann.search.replay`` a replay, the replays run the call's
+    iterations in blocks, and the K4 launches counted are the
+    iterations."""
+    x, q, _ = beam_graph_case
+    eng = AntitopoEngine(config=AntitopoConfig(M=16, ef_construction=80, ef_search=64, query_expand=2,
+                                               packed_topt=8), device="cuda")
+    eng.store_many_vectors(x)
+    eng.build()
+    qh = q[:1].cpu().numpy()
+    eng.query_k_batch(qh, 10)  # the packed layout and the capture, before the trace
+    iters, steps = [], []
+    real_beam, real_any = search.beam_search, torch.Tensor.any
+
+    def counted_beam(*args, **kwargs):
+        return real_beam(*args, **kwargs, iters=iters)
+
+    def counted_any(self, *args, **kwargs):
+        steps.append(1)
+        return real_any(self, *args, **kwargs)
+
+    monkeypatch.setattr(search, "beam_search", counted_beam)
+    monkeypatch.setattr(torch.Tensor, "any", counted_any)
+    k4 = _kernels.launches["packed_score"]
+    with profiling.trace(str(tmp_path), device="cuda"):
+        eng.query_k_batch(qh, 10)
+    monkeypatch.undo()
+    assert _kernels.launches["packed_score"] - k4 == iters[0]
+    (path,) = tmp_path.glob("trace_*.json")
+    spans = Counter(e["name"] for e in json.loads(path.read_text())["traceEvents"]
+                    if e.get("cat") == "user_annotation" and e.get("name", "").startswith("expann."))
+    replays = spans["expann.search.replay"]
+    tail = iters[0] - replays * search.BEAM_BLOCK
+    assert len(iters) == 1 and replays > 0 and 0 <= tail < search.BEAM_BLOCK
+    assert len(steps) > 0 and spans["expann.sync"] == len(steps) + replays + tail
 
 
 @pytest.mark.parametrize("kind,seed", probe_fused.CASES, ids=[f"{k}-{s}" for k, s in probe_fused.CASES])

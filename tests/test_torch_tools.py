@@ -177,6 +177,21 @@ def test_tool_results_on_cpu(tiny, capsys):
     capsys.readouterr()
 
 
+def test_perf_beam_block_runs_on_cpu(capsys):
+    """The block sweep's eager arms on the CPU, where nothing is captured:
+    every list equal to itself, no capture timed, one JSON line naming the
+    CPU."""
+    from expann_tpu_torch.tools import perf_beam_block
+
+    out = perf_beam_block.main(["--device", "cpu", "--n", "800", "--rounds", "2", "--queries", "3", "--mixed", "3"])
+    assert out["card"] == "cpu" and set(out["arms"]) == {"eager"} and out["capture_ms"] == {}
+    eager = out["arms"]["eager"]
+    assert eager["identical_to_eager"] and eager["median_ms"] > 0 and eager["iterations"] > 1
+    mixed = out["mixed"]
+    assert mixed["identical_to_eager"] and mixed["calls"] == 3 and mixed["eager"]["captures"] == [0, 0]
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["arms"]["eager"] == eager
+
+
 def test_persist_1m_artifacts(tiny):
     root, _ = tiny
     png = persist_1m_artifacts.main(["--log", str(root / "bench_1m.log"), "--dataset", "ds", "--root",
