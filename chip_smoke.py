@@ -43,7 +43,12 @@ Phases, one line each, stamped with the host seconds since the script started:
                    byte once, tools/perf_fused_search.traversal_bound: the
                    distinct blocks the call expands, as the plain version
                    records them, with its gathered rate, a block an
-                   expansion, beside it); K2 and K3
+                   expansion, beside it); K1-rows (`fused_rows`) held
+                   to its plain version at the wide index's shape (2**20
+                   integer-valued rows of 1024 dims, 96 neighbours, 8192
+                   queries at ef=80: ids, distances, rows and iterations
+                   identical, 7 launches counted) and timed against the
+                   rows it read at 3.35 TB/s; K2 and K3
                    are first held to
                    their plain version on the timed inputs (16384 queries
                    on the flat engine's corpus) with phase 3's limits, and
@@ -286,7 +291,7 @@ def bound(nbytes: float, ops: float, dtype: str = "bf16") -> tuple:
 
 KERNEL_NAMES = (
     "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel", "flat_topk_kernel", "flat_topk_s8_kernel",
-    "fused_search_kernel", "fused_search_s8_kernel", "packed_score_kernel",
+    "fused_search_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel", "packed_score_kernel",
     "probe_fused_kernel", "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel",
 )
 # P2's comparison: steps, odd, at least 4 rings of NBUF=8 on each block of
@@ -468,6 +473,77 @@ def hold_fused(torch, label: str, g, q, ef: int, expand: int, cand: int, seeds: 
         check(bool(torch.allclose(kd[same], pd_[same], rtol=D_RTOL, atol=D_ATOL)),
               f"{label}: {name}: beam distances differ by {err}")
     return err
+
+
+def hold_fused_rows(torch, dev, card: str, n: int = 1 << 20, B: int = 8192) -> dict:
+    """K1-rows through ``fused_search_rows`` at the wide index's serving
+    shape against its plain version: 2**20 rows of 1024 integer-valued dims
+    in [-3, 3] (a 2 GB bf16 corpus; every distance exact in both), 96
+    neighbours a node at an odd stride from a random start (2**20 ids
+    without a repeat; every seventh node's last quarter the sentinel), 8192
+    integer queries seeded with 4 random nodes, ef=80 in EF=128, expand 2,
+    cand 8.  Ids, distances, row counts and iterations identical, the
+    launches counted; the kernel timed against its bound: the rows it read
+    with their norm and id (2 D + 8 B each), queries and beams, at 3.35
+    TB/s.  Returns the largest distance difference, the launches and the
+    times."""
+    from expann_tpu_torch.ops import _kernels
+    from expann_tpu_torch.ops.fused import fused_search_rows, fused_search_rows_plain, ring_for, topt_for
+    from expann_tpu_torch.ops.packed import build_rows, packed_widths
+    from expann_tpu_torch.utils.profiling import event_ms
+
+    d, R, ef, EF, E, cand = 1024, 96, 80, 128, 2, 8
+    gen = torch.Generator(device=dev).manual_seed(21)
+    vecs = torch.zeros((n + 1, d), device=dev)
+    vecs[:n].random_(-3, 4, generator=gen)
+    norms = torch.einsum("nd,nd->n", vecs, vecs)
+    norms[n] = float("inf")
+    start = torch.randint(0, n, (n + 1, 1), generator=gen, device=dev)
+    stride = 2 * torch.randint(0, n // 2, (n + 1, 1), generator=gen, device=dev) + 1
+    adj = ((start + stride * torch.arange(R, device=dev)) % n).to(torch.int32)
+    adj[::7, R - R // 4 :] = n
+    adj[n] = n
+    rows, rn, ri = build_rows(vecs, norms, adj)
+    q = torch.empty((B, d), device=dev).random_(-3, 4, generator=gen)
+    seeds = torch.randint(0, n, (B, 4), generator=gen, device=dev, dtype=torch.int32)
+    bd0 = torch.full((B, EF), float("inf"), device=dev)
+    bi0 = torch.full((B, EF), n, dtype=torch.int32, device=dev)
+    bi0[:, :4] = seeds
+    bd0[:, :4] = ((q[:, None, :] - vecs[seeds.long()]) ** 2).sum(-1)
+    del vecs, norms, adj, start, stride
+    rs = packed_widths(R)[0]
+    topt, max_iters = topt_for(cand, E, rs), 8 * ef + 16
+
+    def call():
+        return fused_search_rows(rows, rn, ri, rs, q, bd0, bi0, ef=ef, expand=E, cand=cand)
+
+    before = _kernels.launches["fused_search_rows"]
+    got = call()
+    ref = []
+    plain_ms = event_ms(lambda: ref.append(fused_search_rows_plain(rows, rn, ri, rs, q, bd0, bi0, ef, E, topt,
+                                                                    max_iters)), reps=1, warmup=0)
+    torch.cuda.synchronize()
+    diff = {name: int((a != b).sum()) for name, a, b in zip(("ids", "dist", "ncomp", "iters"), got, ref[-1])}
+    live = torch.isfinite(got[1]) & torch.isfinite(ref[-1][1])
+    err = float((got[1] - ref[-1][1])[live].abs().max())
+    ms = event_ms(call, reps=5)
+    launched = _kernels.launches["fused_search_rows"] - before
+    gathered = int(got[2].sum())
+    kb = bound(gathered * (2 * d + 8) + B * d * 4 + 2 * B * EF * 8 + 2 * B * 4, 2.0 * gathered * d)
+    ring = ring_for(2, B, d, rs, ri.shape[1], EF, E)
+    phase("fused_rows", n=n, d=d, rs=rs, B=B, ef=ef, EF=EF, expand=E, topt=topt, differing=diff,
+          max_abs_err=f"{err:.3e}", rows_per_query=f"{gathered / B:.1f}",
+          iterations_per_query=f"{float(got[3].float().mean()):.1f}", launches=launched, ms=f"{ms:.3f}",
+          plain_ms=f"{plain_ms:.3f}", bound_ms=f"{kb[0]:.4f}", bound_by=kb[1], share=f"{kb[0] / ms:.4f}",
+          gathered_tb_per_s=f"{gathered * 2 * d / (ms * 1e-3) / 1e12:.3f}", ring=f"{ring[0]}x{ring[1]}",
+          ctas_per_sm=ring[2], card=card)
+    check(not any(diff.values()), f"fused_rows: K1-rows differs from its plain version: {diff}")
+    check(launched == 7, f"fused_rows: {launched} launches of K1-rows counted, 7 made")
+    check(int(got[3].min()) >= 2, "fused_rows: a query stopped before its second iteration")
+    del rows, rn, ri, q, bd0, bi0, got, ref
+    torch.cuda.empty_cache()
+    return dict(err=err, launches=launched,
+                times=dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=kb[0], bound_by=kb[1]))
 
 
 def hold_flat_s8(torch, label: str, fn, q, x, k: int) -> float:
@@ -652,7 +728,7 @@ def quantized_phases(torch, dev, ds, graph, cfg, card: str, topt: int) -> dict:
     expansions = int(fused_search_cuda(*targs)[2].sum()) // rs
     blocks = expanded_blocks(*targs)
     kb = traversal_bound(expansions, blocks, rs, D, g.packed_norms.shape[1], "s8", Bq, EF)
-    ring = ring_for(True, Bq, D, rs, g.packed_norms.shape[1], EF, cfg.query_expand)
+    ring = ring_for(1, Bq, D, rs, g.packed_norms.shape[1], EF, cfg.query_expand)
     times["fused_search_s8"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=kb["bound_ms"],
                                     bound_by=kb["bound_by"])
     phase("times", kernel="fused_search_s8", B=Bq, ef=ef, EF=EF, ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
@@ -1943,14 +2019,15 @@ def main() -> None:
         "flat_topk_s8_kernel": lib.expann_flat_topk_smem_bytes(D, 3 * K),
         "flat_topk_fixed_s8_kernel": lib.expann_flat_topk_fixed_smem_bytes(D, 3 * K),
         "fused_search_s8_kernel": lib.expann_fused_search_smem_bytes(1, D, 128, 128, 128, cfg.query_expand),
+        "fused_search_rows_kernel": lib.expann_fused_search_smem_bytes(2, D, 128, 128, 128, cfg.query_expand),
         "probe_fused_kernel": 0,
         "block_gather_kernel": lib.expann_block_gather_smem_bytes(128, D, 4),
         "step_overhead_kernel": lib.expann_step_overhead_smem_bytes(128),
         "probe_lanes_kernel": 0,
     }
     # resident queries per SM of the traversal kernels at the canonical widths and batch
-    ctas = {name: ring_for(s8, cfg.query_block, D, 128, 128, 128, cfg.query_expand)[2]
-            for name, s8 in (("fused_search_kernel", False), ("fused_search_s8_kernel", True))}
+    ctas = {name: ring_for(kind, cfg.query_block, D, 128, 128, 128, cfg.query_expand)[2]
+            for kind, name in enumerate(("fused_search_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel"))}
     check(all(v >= 1 for v in ctas.values()), f"a traversal kernel cannot be resident: {ctas}")
     for kname, info in sorted(ptx.items()):
         phase("build", kernel=kname, arch=info["arch"], instances=info["instances"], registers=info["registers"],
@@ -1959,7 +2036,8 @@ def main() -> None:
               **({"ctas_per_sm": ctas[kname]} if kname in ctas else {}))
     phase("build", seconds=f"{build_s:.3f}", source=os.path.join("expann_tpu_torch", "csrc"))
     no_spill = ("flat_topk_kernel", "flat_topk_s8_kernel", "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel",
-                "packed_score_kernel", "fused_search_kernel", "fused_search_s8_kernel", "probe_fused_kernel",
+                "packed_score_kernel", "fused_search_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel",
+                "probe_fused_kernel",
                 "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel")
     check(all(ptx[name]["spill_bytes"] == 0 for name in no_spill),
           f"a kernel that may not spill spills registers: {[(name, ptx[name]) for name in no_spill]}")
@@ -2164,7 +2242,7 @@ def main() -> None:
     expansions = int(fused_search_cuda(*fargs)[2].sum()) // rs
     blocks = expanded_blocks(*fargs)
     kb = traversal_bound(expansions, blocks, rs, D, g.packed_norms.shape[1], "bf16", Bq, EF)
-    ring = ring_for(False, Bq, D, rs, g.packed_norms.shape[1], EF, cfg.query_expand)
+    ring = ring_for(0, Bq, D, rs, g.packed_norms.shape[1], EF, cfg.query_expand)
     times["fused_search"] = dict(ms=fused_ms, plain_ms=fused_plain_ms, library_ms=None,
                                  bound_ms=kb["bound_ms"], bound_by=kb["bound_by"])
     phase("times", kernel="fused_search", B=Bq, ef=ef, EF=EF, ms=f"{fused_ms:.3f}",
@@ -2175,6 +2253,8 @@ def main() -> None:
           gathered_yardstick=repr(YARDSTICK["bf16"]),
           ring=f"{ring[0]}x{ring[1]}", ctas_per_sm=ring[2], card=card)
     del bd0, bi0, fargs
+    rows_res = hold_fused_rows(torch, dev, card)
+    times["fused_search_rows"] = rows_res["times"]
 
     t4 = cfg.packed_topt
     rt = g.packed_norms.shape[1]
@@ -2265,6 +2345,7 @@ def main() -> None:
         ("fused_search", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:69",
          launches["batched"]["fused_search"] + wave["fused_search"] + sharded["fused_search"],
          max(fused_err, cli_err["fused_search"], wres["err"]["fused_search"], sres["err"]["fused_search"])),
+        ("fused_search_rows", "expann_tpu_torch/csrc/fused_search.cu", None, rows_res["launches"], rows_res["err"]),
         ("fused_search_s8", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:258",
          quant["fused_search_s8"] + mres["serve"]["fused_search_s8"] + wave["fused_search_s8"],
          max(qres["fused_s8_err"], cli_err["fused_search_s8"], mres["s8_err"], wres["err"]["fused_search_s8"])),

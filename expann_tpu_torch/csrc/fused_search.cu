@@ -1,10 +1,14 @@
 // Fused bottom-layer beam search over the packed neighbour layout, bf16
 // blocks (`fused_search_kernel`, K1) or centered s8 code blocks
-// (`fused_search_s8_kernel`, K1-s8).
+// (`fused_search_s8_kernel`, K1-s8), or over the bf16 corpus rows read by
+// neighbour id (`fused_search_rows_kernel`, K1-rows).
 //
 // Replaces expann_tpu/ops/pallas_fused.py:_fused_kernel (launcher
 // `fused_search` :665, call :717), its "topt" merge only, and its s8 branch
-// (:101, :258-262).
+// (:101, :258-262).  K1-rows replaces no TPU kernel: it serves an index
+// whose packed blocks (N+1 x RS x D) do not fit the card, such as 1M rows
+// of 960 dims (201 GB of bf16 blocks against 2 GB of rows), where the JAX
+// package falls back to its gather beam.
 //
 // What it computes, per query (one thread block each): starting from the
 // seeded beam of EF (distance, id) entries, of which the first `ef` are
@@ -25,7 +29,10 @@
 //     it stands when that node's turn starts), and offer the others in
 //     ascending order: each replaces the live worst (d, lane) if strictly
 //     smaller.
-// ncomp counts RS per selected (non-sentinel) node, padding rows included.
+// ncomp counts RS per selected (non-sentinel) node, padding rows included;
+// K1-rows counts the non-sentinel rows it copied and scored.  K1-rows
+// scores the same rows as K1 in the same order, so over the same graph and
+// query both return the same beams, distances and iteration counts.
 // Unlike the TPU kernel, distances and lanes are kept as separate
 // (d, lane) pairs (no low-mantissa lane keys), the expanded flag is its own
 // byte (not ~id), and termination is per query (a done query in a TPU
@@ -72,6 +79,16 @@
 //    against a snapshot of the beam's ids taken at the node's turn and
 //    offered to the live worst at once; the first refused ends the turn.
 //  * Select (warp 0): the live worst and E argmins, the same reductions.
+//  * K1-rows: the copy stage alone differs (a template policy: K1 and K1-s8
+//    compile as before).  Selection first copies the selected nodes' norm
+//    and id rows onto a barrier of their own, and the copying thread waits
+//    for them; then every chunk is one bulk copy a non-sentinel neighbour
+//    row, `rows + id * D` (2 KB at D = 1024), into the chunk's slot, armed
+//    for the rows actually copied.  A sentinel slot is not copied and
+//    scores +inf, as its +inf norm makes it score in K1.  The id row's
+//    latency is paid once an iteration; the other resident queries' copies
+//    cover it.  At D = 1024 an 8 KB slot holds 4 rows, the f32 query takes
+//    4 KB, and ~18 KB of shared memory leaves ~11 queries an SM.
 //  * Occupancy.  13.5 KB of shared memory (13.2 KB in s8) and at most 64
 //    registers a thread (`__launch_bounds__(64, 16)`, no spills) give 16
 //    resident queries an SM, 2112 on the card: while one merges and
@@ -93,8 +110,9 @@ constexpr int THREADS = 64;
 constexpr int WARPS = THREADS / 32;
 constexpr int QN_LANES = 128;        // |q|^2 is summed as 128 lanes would, whatever THREADS
 constexpr int MIN_BLOCKS = 16;       // resident blocks an SM: at most 64 registers a thread
+constexpr int ROWS_MIN_BLOCKS = 12;  // K1-rows: shared memory holds ~11 an SM at D = 1024 anyway
 constexpr int DEFAULT_SLOT = 8192;   // the default ring: one 8 KB slot (32 bf16 or 64 s8 rows)
-constexpr int HEADER = 64;           // the slots' mbarriers, then the stage region
+constexpr int HEADER = 64;           // the slots' mbarriers (K1-rows: and the id rows'), then the stage region
 constexpr int MAX_SLOTS = HEADER / 8;
 constexpr int MAX_RS = 256;          // rows a block: 8 per lane of warp 0
 constexpr int SMEM_LIMIT = 232448;   // shared memory a block may use (227 KB)
@@ -135,6 +153,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void expect_bytes(uint64_t* bar, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
+}
+
+// One thread: arrive on `bar` with no bytes to wait for (a chunk of
+// sentinel rows alone: its phase completes at once).
+__device__ __forceinline__ void arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // `src`, `dst` and `bytes` are multiples of 16.
@@ -363,8 +387,12 @@ __device__ __forceinline__ void merge_node(const float* de, const int* ie, float
   __syncwarp();
 }
 
-template <typename T>
-__device__ __forceinline__ void fused_body(const T* __restrict__ packed,      // (N+1, RS, D)
+// ROWS: `src` is the corpus (N+1, D) and a node's neighbours are copied
+// row by row by id (K1-rows); else `src` is the packed blocks (N+1, RS, D).
+// `stall` (K1-rows): bytes the id rows' barrier expects beyond its copies,
+// 0 in service; more makes that wait time out (the timeout's test).
+template <typename T, bool ROWS>
+__device__ __forceinline__ void fused_body(const T* __restrict__ src,         // (N+1, RS, D) or (N+1, D)
                                            const float* __restrict__ pnorms,  // (N+1, Rt)
                                            const int* __restrict__ pids,      // (N+1, Rt)
                                            const float* __restrict__ q,       // (B, D)
@@ -375,7 +403,7 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
                                            int* __restrict__ oncomp,
                                            int* __restrict__ oiters,  // (B,)
                                            int D, int RS, int Rt, int EF, int ef, int max_iters, int E,
-                                           int topt, int sentinel, int nslot_req, int slot_req) {
+                                           int topt, int sentinel, int nslot_req, int slot_req, int stall) {
   using B_ = Blk<T>;
   using Acc = typename B_::Acc;
   constexpr int PER16 = B_::PER16, LPR = B_::LPR, GROUPS = THREADS / LPR, UNROLL = B_::UNROLL;
@@ -403,8 +431,9 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
   const int rb = D * B_::ELT;
   const unsigned aux_bytes = 8u * Rt;  // a node's norm and id rows
 
+  uint64_t* abar = &bars[P.nslot];  // K1-rows: the selected nodes' norm and id rows
   if (tid == 0) {
-    for (int s = 0; s < P.nslot; ++s) barrier_init(&bars[s]);
+    for (int s = 0; s < P.nslot + (ROWS ? 1 : 0); ++s) barrier_init(&bars[s]);
     fence_barrier_init();
   }
   for (int i = tid; i < D; i += THREADS) B_::stage(qs, i, q[(size_t)b * D + i]);
@@ -439,10 +468,28 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
     const int node = sel[rl[k / P.nc]];
     const int rows = min(P.cr, RS - c * P.cr);
     bytes = (unsigned)(rows * rb);
-    return reinterpret_cast<const unsigned char*>(packed) + ((size_t)node * RS + (size_t)c * P.cr) * rb;
+    return reinterpret_cast<const unsigned char*>(src) + ((size_t)node * RS + (size_t)c * P.cr) * rb;
+  };
+  // K1-rows, one thread: arm `bar` for chunk k's non-sentinel rows and copy
+  // each by its id into the slot `dst`; returns the rows copied
+  auto copy_rows = [&](int k, unsigned char* dst, uint64_t* bar) -> int {
+    const int r0 = (k % P.nc) * P.cr;
+    const int rows = min(P.cr, RS - r0);
+    const int* ids = ai + rl[k / P.nc] * Rt + r0;
+    int real = 0;
+    for (int r = 0; r < rows; ++r) real += ids[r] != sentinel;
+    if (real)
+      expect_bytes(bar, (unsigned)(real * rb));
+    else
+      arrive(bar);
+    for (int r = 0; r < rows; ++r)
+      if (ids[r] != sentinel)
+        bulk_copy(dst + r * rb, reinterpret_cast<const unsigned char*>(src) + (size_t)ids[r] * rb, rb, bar);
+    return real;
   };
 
   unsigned kc = 0;  // chunks consumed so far, over all iterations: slot kc % nslot, parity (kc / nslot) & 1
+  unsigned ka = 0;  // K1-rows: id-row phases so far
   int it = 0, ncomp = 0;
   uint32_t wsel = NONE;  // warp 0: orderable bits of the live worst at this iteration's selection
   while (it < max_iters) {
@@ -479,7 +526,25 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
       if (lane == 0) {
         ctl[0] = stop;
         ctl[1] = nreal;
-        if (!stop) {
+        if constexpr (ROWS) {
+          if (!stop && nreal > 0) {
+            // the selected nodes' aux rows on their own barrier; once they
+            // land, the iteration's first chunks by the ids they hold
+            fence_proxy_async();
+            expect_bytes(abar, aux_bytes * nreal + (unsigned)stall);
+            for (int r = 0; r < nreal; ++r) {
+              const int e = rl[r];
+              const size_t arow = (size_t)sel[e] * Rt;
+              bulk_copy(an + e * Rt, pnorms + arow, 4 * Rt, abar);
+              bulk_copy(ai + e * Rt, pids + arow, 4 * Rt, abar);
+            }
+            barrier_wait(abar, ka & 1);
+            for (int k = 0; k < P.nslot && k < nreal * P.nc; ++k) {
+              const int slot = (kc + k) % P.nslot;
+              ncomp += copy_rows(k, stage + slot * P.slot, &bars[slot]);
+            }
+          }
+        } else if (!stop) {
           ncomp += nreal * RS;
           // the iteration's first chunks, and every selected node's aux rows
           // on the first chunk's barrier; sel / rl are this thread's own writes
@@ -488,7 +553,7 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
           for (int k = 0; k < P.nslot && k < nch; ++k) {
             uint64_t* bar = &bars[(kc + k) % P.nslot];
             unsigned bytes;
-            const unsigned char* src = chunk_src(k, bytes);
+            const unsigned char* from = chunk_src(k, bytes);
             expect_bytes(bar, bytes + (k == 0 ? aux_bytes * nreal : 0u));
             if (k == 0)
               for (int r = 0; r < nreal; ++r) {
@@ -497,7 +562,7 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
                 bulk_copy(an + e * Rt, pnorms + arow, 4 * Rt, bar);
                 bulk_copy(ai + e * Rt, pids + arow, 4 * Rt, bar);
               }
-            bulk_copy(stage + ((kc + k) % P.nslot) * P.slot, src, bytes, bar);
+            bulk_copy(stage + ((kc + k) % P.nslot) * P.slot, from, bytes, bar);
           }
         }
       }
@@ -506,6 +571,12 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
     ++it;
     if (ctl[0]) break;
     const int nreal = ctl[1];
+    if constexpr (ROWS) {
+      if (nreal > 0) {  // every thread reads the aux rows: wait for them too
+        barrier_wait(abar, ka & 1);
+        ++ka;
+      }
+    }
 
     // ---- scoring (all warps), chunk by chunk from the ring ----
     const int nch = nreal * P.nc;  // the iteration's chunks
@@ -524,7 +595,8 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
         for (int u = 0; u < UNROLL; ++u) {
           acc[u] = 0;
           const int r = base + grp + u * GROUPS;
-          if (r < rows && has_frag) {
+          // K1-rows: a sentinel row was not copied; it scores +inf by its norm, as in K1
+          if (r < rows && has_frag && (!ROWS || ai[e * Rt + r0 + r] != sentinel)) {
             const unsigned char* row = st + (size_t)r * rb;
             acc[u] = B_::dot(*reinterpret_cast<const uint4*>(row + gl * 16), qf, acc[u]);
             for (int c = gl * PER16 + LPR * PER16; c < D; c += LPR * PER16)
@@ -542,11 +614,15 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
       __syncthreads();  // the slot is free again, and node e's rows so far are scored
       if (tid == 0 && k + P.nslot < nch) {
         uint64_t* bar = &bars[slot];
-        unsigned bytes;
-        const unsigned char* src = chunk_src(k + P.nslot, bytes);
         fence_proxy_async();
-        expect_bytes(bar, bytes);
-        bulk_copy(stage + slot * P.slot, src, bytes, bar);
+        if constexpr (ROWS) {
+          ncomp += copy_rows(k + P.nslot, stage + slot * P.slot, bar);
+        } else {
+          unsigned bytes;
+          const unsigned char* from = chunk_src(k + P.nslot, bytes);
+          expect_bytes(bar, bytes);
+          bulk_copy(stage + slot * P.slot, from, bytes, bar);
+        }
       }
       // node e's last chunk: warp 0 merges it while the later chunks' copies
       // are in flight; the other warps go on to the next chunk's wait
@@ -575,16 +651,48 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ packed,      //
            const int* __restrict__ bi0, int* __restrict__ obi,                                       \
            float* __restrict__ obd, int* __restrict__ oncomp, int* __restrict__ oiters, int D, int RS, \
            int Rt, int EF, int ef, int max_iters, int E, int topt, int sentinel, int nslot, int slot) { \
-    fused_body<T>(packed, pnorms, pids, q, bd0, bi0, obi, obd, oncomp, oiters, D, RS, Rt, EF, ef,        \
-                  max_iters, E, topt, sentinel, nslot, slot);                                        \
+    fused_body<T, false>(packed, pnorms, pids, q, bd0, bi0, obi, obd, oncomp, oiters, D, RS, Rt, EF, ef, \
+                         max_iters, E, topt, sentinel, nslot, slot, 0);                              \
   }
 FUSED_KERNEL(fused_search_kernel, __nv_bfloat16)
 FUSED_KERNEL(fused_search_s8_kernel, int8_t)
 #undef FUSED_KERNEL
 
-template <typename T>
-using Kernel = void (*)(const T*, const float*, const int*, const float*, const float*, const int*, int*,
-                        float*, int*, int*, int, int, int, int, int, int, int, int, int, int, int);
+// K1-rows: `rows` is the bf16 corpus (N+1, D), RS the id slots scored a node.
+__global__ void __launch_bounds__(THREADS, ROWS_MIN_BLOCKS)
+    fused_search_rows_kernel(const __nv_bfloat16* __restrict__ rows, const float* __restrict__ pnorms,
+                             const int* __restrict__ pids, const float* __restrict__ q,
+                             const float* __restrict__ bd0, const int* __restrict__ bi0, int* __restrict__ obi,
+                             float* __restrict__ obd, int* __restrict__ oncomp, int* __restrict__ oiters, int D,
+                             int RS, int Rt, int EF, int ef, int max_iters, int E, int topt, int sentinel,
+                             int nslot, int slot, int stall) {
+  fused_body<__nv_bfloat16, true>(rows, pnorms, pids, q, bd0, bi0, obi, obd, oncomp, oiters, D, RS, Rt, EF, ef,
+                                  max_iters, E, topt, sentinel, nslot, slot, stall);
+}
+
+// The three kernels: index 0 K1, 1 K1-s8, 2 K1-rows (its element type and
+// copy policy in `Kind`).
+constexpr int KINDS = 3;
+template <int KI>
+struct Kind;
+template <>
+struct Kind<0> {
+  using T = __nv_bfloat16;
+  static constexpr bool ROWS = false;
+  static auto kernel() { return fused_search_kernel; }
+};
+template <>
+struct Kind<1> {
+  using T = int8_t;
+  static constexpr bool ROWS = false;
+  static auto kernel() { return fused_search_s8_kernel; }
+};
+template <>
+struct Kind<2> {
+  using T = __nv_bfloat16;
+  static constexpr bool ROWS = true;
+  static auto kernel() { return fused_search_rows_kernel; }
+};
 
 template <typename T>
 Plan plan_for(int D, int RS, int Rt, int EF, int E, int nslot, int slot) {
@@ -608,17 +716,18 @@ struct Occupancy {
     return n;
   }
 };
-Occupancy occupancy[MAX_DEVICES][2];
+Occupancy occupancy[MAX_DEVICES][KINDS];
 
-// On the current device, once: let `kernel` take up to SMEM_LIMIT bytes of
-// dynamic shared memory, and read its occupancy table.
-template <typename T>
-cudaError_t prepare(Kernel<T> kernel, int ki, const Occupancy*& occ) {
+// On the current device, once: let kernel KI take up to SMEM_LIMIT bytes
+// of dynamic shared memory, and read its occupancy table.
+template <int KI>
+cudaError_t prepare(const Occupancy*& occ) {
+  const auto kernel = Kind<KI>::kernel();
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  Occupancy& o = occupancy[dev][ki];
+  Occupancy& o = occupancy[dev][KI];
   occ = &o;
   if (o.ready) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
@@ -643,11 +752,14 @@ cudaError_t prepare(Kernel<T> kernel, int ki, const Occupancy*& occ) {
 // (16 an SM).  A small batch leaves resident slots empty, so a deeper ring
 // a query is free there; a large one is paced by the bytes in flight an
 // SM, which more resident queries raise.  No CUDA call: `occ` was read once.
-template <typename T>
+// K1-rows keeps one barrier of the header for the id rows.
+template <int KI>
 Plan choose_plan(const Occupancy& occ, int B, int D, int RS, int Rt, int EF, int E) {
+  using T = typename Kind<KI>::T;
+  const int max_slots = MAX_SLOTS - (Kind<KI>::ROWS ? 1 : 0);
   const Plan p = plan_for<T>(D, RS, Rt, EF, E, 1, DEFAULT_SLOT);
   const int need = (B + occ.sms - 1) / occ.sms;
-  const int rings[3][2] = {{E < MAX_SLOTS ? E : MAX_SLOTS, RS * D * Blk<T>::ELT}, {2, 16384}, {1, 16384}};
+  const int rings[3][2] = {{E < max_slots ? E : max_slots, RS * D * Blk<T>::ELT}, {2, 16384}, {1, 16384}};
   for (const auto& r : rings) {
     const Plan c = plan_for<T>(D, RS, Rt, EF, E, r[0], r[1]);
     if (c.smem <= SMEM_LIMIT && c.nslot * c.slot > p.nslot * p.slot && occ.resident(c.smem) >= need) return c;
@@ -655,55 +767,65 @@ Plan choose_plan(const Occupancy& occ, int B, int D, int RS, int Rt, int EF, int
   return p;
 }
 
-template <typename T>
-int launch(Kernel<T> kernel, int ki, const void* packed, const void* pnorms, const void* pids, const void* q,
-           const void* bd0, const void* bi0, void* obi, void* obd, void* oncomp,
-           void* oiters, int B, int D, int RS, int Rt, int EF, int ef, int max_iters, int E, int topt,
-           int sentinel, void* stream) {
+template <int KI>
+int launch(const void* src, const void* pnorms, const void* pids, const void* q, const void* bd0,
+           const void* bi0, void* obi, void* obd, void* oncomp, void* oiters, int B, int D, int RS, int Rt,
+           int EF, int ef, int max_iters, int E, int topt, int sentinel, int stall, void* stream) {
+  using T = typename Kind<KI>::T;
   if (D % (16 / Blk<T>::ELT) != 0 || D < 1 || RS < 1 || RS % 16 != 0 || RS > MAX_RS || RS > Rt || Rt % 4 != 0 ||
-      ef < 1 || ef > EF || topt < 1 || topt > RS || E < 1)
+      ef < 1 || ef > EF || topt < 1 || topt > RS || E < 1 || stall < 0 || stall % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const Occupancy* occ = nullptr;
-  const cudaError_t err = prepare<T>(kernel, ki, occ);
+  const cudaError_t err = prepare<KI>(occ);
   if (err != cudaSuccess) return (int)err;
-  const Plan p = choose_plan<T>(*occ, B, D, RS, Rt, EF, E);
+  const Plan p = choose_plan<KI>(*occ, B, D, RS, Rt, EF, E);
   if (p.smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;  // even the default ring does not fit
-  kernel<<<B, THREADS, p.smem, (cudaStream_t)stream>>>(
-      (const T*)packed, (const float*)pnorms, (const int*)pids, (const float*)q, (const float*)bd0,
-      (const int*)bi0, (int*)obi, (float*)obd, (int*)oncomp, (int*)oiters, D, RS, Rt, EF,
-      ef, max_iters, E, topt, sentinel, p.nslot, p.slot);
+  const auto kernel = Kind<KI>::kernel();
+  if constexpr (Kind<KI>::ROWS)
+    kernel<<<B, THREADS, p.smem, (cudaStream_t)stream>>>(
+        (const T*)src, (const float*)pnorms, (const int*)pids, (const float*)q, (const float*)bd0,
+        (const int*)bi0, (int*)obi, (float*)obd, (int*)oncomp, (int*)oiters, D, RS, Rt, EF, ef, max_iters, E,
+        topt, sentinel, p.nslot, p.slot, stall);
+  else
+    kernel<<<B, THREADS, p.smem, (cudaStream_t)stream>>>(
+        (const T*)src, (const float*)pnorms, (const int*)pids, (const float*)q, (const float*)bd0,
+        (const int*)bi0, (int*)obi, (float*)obd, (int*)oncomp, (int*)oiters, D, RS, Rt, EF, ef, max_iters, E,
+        topt, sentinel, p.nslot, p.slot);
   return (int)cudaGetLastError();
+}
+
+template <int KI>
+int ring(int B, int D, int RS, int Rt, int EF, int E, int* nslot, int* slot, int* ctas) {
+  const Occupancy* occ = nullptr;
+  cudaError_t err = prepare<KI>(occ);
+  if (err != cudaSuccess) return (int)err;
+  const Plan p = choose_plan<KI>(*occ, B, D, RS, Rt, EF, E);
+  *nslot = p.nslot;
+  *slot = p.slot;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, Kind<KI>::kernel(), THREADS, p.smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block at the default ring (s8: 1 for int8
-// blocks).
-int expann_fused_search_smem_bytes(int s8, int D, int RS, int Rt, int EF, int E) {
-  return s8 ? plan_for<int8_t>(D, RS, Rt, EF, E, 1, DEFAULT_SLOT).smem
-            : plan_for<__nv_bfloat16>(D, RS, Rt, EF, E, 1, DEFAULT_SLOT).smem;
+// Dynamic shared memory of one block at the default ring (kind: 0 K1,
+// 1 K1-s8, 2 K1-rows, whose plan is K1's).
+int expann_fused_search_smem_bytes(int kind, int D, int RS, int Rt, int EF, int E) {
+  return kind == 1 ? plan_for<int8_t>(D, RS, Rt, EF, E, 1, DEFAULT_SLOT).smem
+                   : plan_for<__nv_bfloat16>(D, RS, Rt, EF, E, 1, DEFAULT_SLOT).smem;
 }
 
-// The ring a launch of B queries takes on the current device, into
-// nslot / slot (bytes), and its resident blocks (queries) an SM, as
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives it, into ctas;
-// returns a CUDA error code (0 on success).
-int expann_fused_search_ring(int s8, int B, int D, int RS, int Rt, int EF, int E, int* nslot, int* slot,
+// The ring a launch of B queries of kernel `kind` (as above) takes on the
+// current device, into nslot / slot (bytes), and its resident blocks
+// (queries) an SM, as cudaOccupancyMaxActiveBlocksPerMultiprocessor gives
+// it, into ctas; returns a CUDA error code (0 on success).
+int expann_fused_search_ring(int kind, int B, int D, int RS, int Rt, int EF, int E, int* nslot, int* slot,
                              int* ctas) {
-  const Occupancy* occ = nullptr;
-  cudaError_t err =
-      s8 ? prepare<int8_t>(fused_search_s8_kernel, 1, occ) : prepare<__nv_bfloat16>(fused_search_kernel, 0, occ);
-  if (err != cudaSuccess) return (int)err;
-  const Plan p = s8 ? choose_plan<int8_t>(*occ, B, D, RS, Rt, EF, E)
-                    : choose_plan<__nv_bfloat16>(*occ, B, D, RS, Rt, EF, E);
-  *nslot = p.nslot;
-  *slot = p.slot;
-  err = s8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fused_search_s8_kernel, THREADS, p.smem)
-           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fused_search_kernel, THREADS, p.smem);
-  return (int)err;
+  if (kind == 1) return ring<1>(B, D, RS, Rt, EF, E, nslot, slot, ctas);
+  if (kind == 2) return ring<2>(B, D, RS, Rt, EF, E, nslot, slot, ctas);
+  return ring<0>(B, D, RS, Rt, EF, E, nslot, slot, ctas);
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  The
@@ -715,8 +837,8 @@ int expann_fused_search_bf16(const void* packed, const void* pnorms, const void*
                              const void* bd0, const void* bi0, void* obi, void* obd,
                              void* oncomp, void* oiters, int B, int D, int RS, int Rt, int EF, int ef,
                              int max_iters, int E, int topt, int sentinel, void* stream) {
-  return launch<__nv_bfloat16>(fused_search_kernel, 0, packed, pnorms, pids, q, bd0, bi0, obi, obd,
-                               oncomp, oiters, B, D, RS, Rt, EF, ef, max_iters, E, topt, sentinel, stream);
+  return launch<0>(packed, pnorms, pids, q, bd0, bi0, obi, obd, oncomp, oiters, B, D, RS, Rt, EF, ef, max_iters,
+                   E, topt, sentinel, 0, stream);
 }
 
 // K1-s8: int8 code blocks and a code-space query (integer-valued f32 in
@@ -725,8 +847,21 @@ int expann_fused_search_s8(const void* packed, const void* pnorms, const void* p
                            const void* bd0, const void* bi0, void* obi, void* obd,
                            void* oncomp, void* oiters, int B, int D, int RS, int Rt, int EF, int ef,
                            int max_iters, int E, int topt, int sentinel, void* stream) {
-  return launch<int8_t>(fused_search_s8_kernel, 1, packed, pnorms, pids, q, bd0, bi0, obi, obd,
-                        oncomp, oiters, B, D, RS, Rt, EF, ef, max_iters, E, topt, sentinel, stream);
+  return launch<1>(packed, pnorms, pids, q, bd0, bi0, obi, obd, oncomp, oiters, B, D, RS, Rt, EF, ef, max_iters,
+                   E, topt, sentinel, 0, stream);
+}
+
+// K1-rows: the bf16 corpus `rows` (N+1, D) with the zero sentinel row N,
+// and the layout's norm and id rows (N+1, Rt), of which each node's first
+// RS slots are scored; K1's contract otherwise.  `stall` (a multiple of 16,
+// 0 in service) is the test of the copy timeout: the id rows' barrier then
+// expects that many bytes more than it receives, and its wait traps.
+int expann_fused_search_rows_bf16(const void* rows, const void* pnorms, const void* pids, const void* q,
+                                  const void* bd0, const void* bi0, void* obi, void* obd, void* oncomp,
+                                  void* oiters, int B, int D, int RS, int Rt, int EF, int ef, int max_iters,
+                                  int E, int topt, int sentinel, int stall, void* stream) {
+  return launch<2>(rows, pnorms, pids, q, bd0, bi0, obi, obd, oncomp, oiters, B, D, RS, Rt, EF, ef, max_iters, E,
+                   topt, sentinel, stall, stream);
 }
 
 }  // extern "C"

@@ -11,6 +11,11 @@ Each chunk of a query call takes one of two routes, as in the JAX engine
 the packed layout (ops/fused.py) for throughput batches, or the
 per-iteration beam search (models/search.py ``query_batch``) for small
 ones, over the packed block scorer (ops/packed.py) or over row gathers.
+Where the packed blocks would pass ``PACKED_BUDGET_BYTES`` (a wide index:
+1M rows of 960 dims), a bf16 engine builds the rows layout instead
+(``ops/packed.build_rows``): the fused route reads each neighbour's row by
+its id (K1-rows), and the per-iteration route, which needs blocks, takes
+the gather beam.
 ``use_packed`` and ``use_fused`` default to ``"auto"``: on when the
 engine's device is CUDA, as the JAX engine's ``"auto"`` means on a TPU.  On
 a CUDA device every kernel is the hand-written one; on the CPU its plain
@@ -26,9 +31,11 @@ queries take the uint8 gather beam (``query_batch(compressed=True)``).
 per-query scale.  ``num_distcomps`` counts the full-precision distance
 evaluations of queries and ``num_distcomps_compressed`` the quantized ones
 (RECORD_STATS, src/antitopo_engine.h:125-129); both reset on ``build`` and
-on ``set_ef_search``.  Under a profiler each call is one
-``expann.engine.query`` span holding the host's cast
-(``expann.engine.cast``), each chunk's upload (``expann.engine.upload``),
+on ``set_ef_search``, as do ``num_rows_gathered`` (the corpus rows K1-rows
+read) and ``num_queries`` (the queries answered).  Under a profiler each
+call is one ``expann.engine.query`` span holding the host's cast
+(``expann.engine.cast``), the serving layout's build on the first query
+(``expann.engine.layout``), each chunk's upload (``expann.engine.upload``),
 the search's spans (models/search.py) and the download
 (``expann.engine.download``).
 
@@ -53,21 +60,23 @@ import torch
 from expann_tpu_torch.models.base import Engine, ParamList, _concat_pending, format_param
 from expann_tpu_torch.models.build import BuildConfig, build_index
 from expann_tpu_torch.models.graph import GraphIndex
-from expann_tpu_torch.models.search import fused_query_batch, query_batch
+from expann_tpu_torch.models.search import entry_cost, fused_query_batch, query_batch
 from expann_tpu_torch.models.wavebuild import extend_index_wave
 from expann_tpu_torch.ops.distance import pad_dim
-from expann_tpu_torch.ops.packed import build_packed, build_packed_i8, packed_bytes
+from expann_tpu_torch.ops.packed import build_packed, build_packed_i8, build_rows, packed_bytes, rows_bytes
 from expann_tpu_torch.ops.quantize import quantize_ranged, quantize_simple, ranged_scale_offset
 from expann_tpu_torch.utils.persist import index_exists, load_index, save_index
 from expann_tpu_torch.utils.profiling import annotate
 
 ENTRY_SCAN_MAX = 65536  # largest upper layer the dense entry scan takes
-# Largest packed layout (blocks only) the engine builds; above it queries
-# take the gather route instead.  The JAX engine allows 10 GiB of a 16 GB
-# TPU (EXPANN_PACKED_BUDGET_GB, antitopo.py:362-381); the same share of the
-# H100's 80 GB is 50 GiB, which leaves ~26 GB for the corpus, the norm and
-# id rows and the query workspace.  Canonical 56k: 0.92 GB (s8) / 1.84 GB
-# (bf16); 1M rows at M0=120: 16.4 GB / 32.8 GB.
+# Largest packed layout (blocks only) the engine builds; above it a bf16
+# engine builds the rows layout (the bf16 corpus, within the same budget)
+# and an s8 one takes the gather route.  The JAX engine allows 10 GiB of a
+# 16 GB TPU (EXPANN_PACKED_BUDGET_GB, antitopo.py:362-381); the same share
+# of the H100's 80 GB is 50 GiB, which leaves ~26 GB for the corpus, the
+# norm and id rows and the query workspace.  Canonical 56k: 0.92 GB (s8) /
+# 1.84 GB (bf16); 1M rows at M0=120: 16.4 GB / 32.8 GB; 1M rows of 1024
+# padded dims at M0=96: 100 GB / 201 GB of blocks, 2.05 GB of rows.
 PACKED_BUDGET_BYTES = 50 * 2**30
 PACKED_DTYPES = ("bf16", "i8")
 QUERY_WIRES = ("bf16", "i8")
@@ -136,6 +145,18 @@ class AntitopoConfig:
             self.M0 = 2 * self.M
 
 
+def serving_layout(np1: int, r: int, d: int, dtype: str) -> Optional[str]:
+    """The layout the engine builds for ``np1`` rows of ``d`` dims and
+    adjacency width ``r``: ``"blocks"`` where the packed blocks fit
+    ``PACKED_BUDGET_BYTES``, else ``"rows"`` for bf16 blocks whose rows fit,
+    else None (the gather route)."""
+    if packed_bytes(np1, r, d, dtype) <= PACKED_BUDGET_BYTES:
+        return "blocks"
+    if dtype == "bf16" and rows_bytes(np1, d) <= PACKED_BUDGET_BYTES:
+        return "rows"
+    return None
+
+
 def route_fused(real: int, query_block: int, use_fused: bool, forced: bool, fused_qt: int) -> bool:
     """Whether a chunk of ``real`` queries takes the fused route
     (antitopo.py:471-481 of the JAX engine): its bucket is 8 doubled until
@@ -185,6 +206,8 @@ class AntitopoEngine(Engine):
         self.dim = 0
         self.num_distcomps = 0
         self.num_distcomps_compressed = 0
+        self.num_rows_gathered = 0
+        self.num_queries = 0
         self.build_stats: dict = {}
 
     # --- identity / params -------------------------------------------------
@@ -261,8 +284,13 @@ class AntitopoEngine(Engine):
         if c.use_compression and self.graph.codes is None:
             self._attach_codes()
         # reset stats before queries (src/antitopo_engine.h:488-492)
+        self._reset_counters()
+
+    def _reset_counters(self) -> None:
         self.num_distcomps = 0
         self.num_distcomps_compressed = 0
+        self.num_rows_gathered = 0
+        self.num_queries = 0
 
     def _build_config(self) -> BuildConfig:
         c = self.cfg
@@ -299,8 +327,7 @@ class AntitopoEngine(Engine):
     # --- query -------------------------------------------------------------
     def set_ef_search(self, ef_search: int) -> None:
         self.cfg.ef_search = int(ef_search)
-        self.num_distcomps = 0
-        self.num_distcomps_compressed = 0
+        self._reset_counters()
 
     def set_packed_dtype(self, dtype: str) -> None:
         """Switch the packed layout ("bf16" | "i8") of a built index: the
@@ -319,10 +346,11 @@ class AntitopoEngine(Engine):
         return max(k * self.cfg.ef_search_mult, k)
 
     def _resolve_packed(self) -> bool:
-        """Whether queries use the packed layout; when they do, materialize
-        it and the entry-member list on first use (antitopo.py:338-433).
-        With ``use_compression`` the layout is s8.  A layout above
-        ``PACKED_BUDGET_BYTES`` is not built: queries take the gather route."""
+        """Whether queries use a packed layout (blocks or rows); when they
+        do, materialize it and the entry-member list on first use
+        (antitopo.py:338-433).  With ``use_compression`` the layout is s8.
+        ``serving_layout`` picks blocks or rows by ``PACKED_BUDGET_BYTES``;
+        where neither is built, queries take the gather route."""
         c = self.cfg
         on = self.device.type == "cuda" if c.use_packed == "auto" else bool(c.use_packed)
         if not on:
@@ -330,15 +358,18 @@ class AntitopoEngine(Engine):
         if c.use_compression:
             self.set_packed_dtype("i8")
         g = self.graph
-        if g.packed is None:
-            if packed_bytes(g.vectors.shape[0], g.adj_bottom.shape[1], g.vectors.shape[1],
-                            c.packed_dtype) > PACKED_BUDGET_BYTES:
+        if g.packed is None and g.packed_rows is None:
+            layout = serving_layout(g.vectors.shape[0], g.adj_bottom.shape[1], g.vectors.shape[1], c.packed_dtype)
+            if layout is None:
                 return False
-            if c.packed_dtype == "i8":
-                (g.packed, g.packed_norms, g.packed_ids, g.packed_codes, g.packed_code_norms, g.packed_center,
-                 g.packed_scale) = build_packed_i8(g.vectors, g.adj_bottom)
-            else:
-                g.packed, g.packed_norms, g.packed_ids = build_packed(g.vectors, g.norms, g.adj_bottom)
+            with annotate("expann.engine.layout"):
+                if layout == "rows":
+                    g.packed_rows, g.packed_norms, g.packed_ids = build_rows(g.vectors, g.norms, g.adj_bottom)
+                elif c.packed_dtype == "i8":
+                    (g.packed, g.packed_norms, g.packed_ids, g.packed_codes, g.packed_code_norms, g.packed_center,
+                     g.packed_scale) = build_packed_i8(g.vectors, g.adj_bottom)
+                else:
+                    g.packed, g.packed_norms, g.packed_ids = build_packed(g.vectors, g.norms, g.adj_bottom)
         if self.cfg.entry_seeds > 0 and g.entry_members is None and g.layers:
             # largest upper layer within the dense-scan budget (layers are
             # ordered bottom-up, so sizes decrease)
@@ -370,14 +401,16 @@ class AntitopoEngine(Engine):
             q = np.asarray(queries, dtype=np.float32)
             if q.ndim != 2:
                 raise ValueError("queries must be 2D")
-            q = pad_dim(q, self.graph.vectors.shape[1])
+        # queries narrower than the index (960 dims on a 1024-wide one) are
+        # padded on the device, after the upload: the host copies no zeros
+        width = self.graph.vectors.shape[1]
         ef = self._ef(k)
         bs = c.query_block
         # quantized serving: the fused route over s8 blocks when they exist,
         # otherwise the uint8 gather beam (antitopo.py:458-460, :493-495)
         compressed = bool(c.use_compression and self.graph.codes is not None)
         res = []
-        ncomp_total = 0
+        ncomp_total = rows_total = 0
         for start in range(0, q.shape[0], bs):
             chunk = q[start : start + bs]
             fused = route_fused(chunk.shape[0], bs, use_fused, c.use_fused is True, c.fused_qt)
@@ -394,7 +427,7 @@ class AntitopoEngine(Engine):
                     else:
                         q_op = torch.from_numpy(chunk).to(torch.bfloat16)
                 with annotate("expann.engine.upload"):
-                    q_op = q_op.to(self.device)
+                    q_op = pad_dim(q_op.to(self.device), width)
                     if q_inv is None:
                         q_op = q_op.float()
                     else:
@@ -410,19 +443,22 @@ class AntitopoEngine(Engine):
                     seeds=c.entry_seeds,
                     q_inv_scale=q_inv,
                 )
+                if self.graph.packed_rows is not None:  # K1-rows: a distance computation a row read
+                    rows_total += ncomp.sum() - chunk.shape[0] * entry_cost(self.graph, c.entry_seeds)
             else:
                 # the per-iteration route takes the f32 query as it is; the
                 # block scorer has no code-space transform, so an s8 layout
-                # takes the gather beam (antitopo.py:563-567)
+                # takes the gather beam (antitopo.py:563-567), as does the
+                # rows layout, which has no blocks to score
                 with annotate("expann.engine.upload"):
-                    q_dev = torch.from_numpy(chunk).to(self.device)
+                    q_dev = pad_dim(torch.from_numpy(chunk).to(self.device), width)
                 ids, _, ncomp = query_batch(
                     self.graph,
                     q_dev,
                     k=k,
                     ef=ef,
                     expand=c.query_expand,
-                    use_packed=use_packed and c.packed_dtype != "i8",
+                    use_packed=use_packed and self.graph.packed is not None and c.packed_dtype != "i8",
                     packed_topt=c.packed_topt,
                     compressed=compressed,
                 )
@@ -438,6 +474,8 @@ class AntitopoEngine(Engine):
             self.num_distcomps += q.shape[0] * ef
         else:
             self.num_distcomps += int(ncomp_total)
+        self.num_rows_gathered += int(rows_total)
+        self.num_queries += q.shape[0]
         return out
 
     def query_k(self, v: np.ndarray, k: int) -> List[int]:

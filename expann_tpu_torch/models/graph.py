@@ -53,6 +53,9 @@ class GraphIndex:
     packed: Optional[torch.Tensor] = None  # (N + 1, RS, D_pad) bf16 or int8
     packed_norms: Optional[torch.Tensor] = None  # (N + 1, R_tile) f32
     packed_ids: Optional[torch.Tensor] = None  # (N + 1, R_tile) int32
+    # the rows layout (ops/packed.build_rows), built instead of the blocks
+    # where they do not fit: the bf16 corpus beside packed_norms / packed_ids
+    packed_rows: Optional[torch.Tensor] = None  # (N + 1, D_pad) bf16
     # with int8 blocks (build_packed_i8): the code corpus for entry-point
     # scoring and the query transform into code space
     packed_codes: Optional[torch.Tensor] = None  # (N + 1, D_pad) int8
@@ -77,10 +80,10 @@ class GraphIndex:
         return self.vectors.shape[0] - 1
 
     def drop_packed(self) -> None:
-        """Forget the packed layout (it is rebuilt on the next query) and
-        the captured beams that read it."""
+        """Forget the packed layout, blocks or rows (it is rebuilt on the
+        next query), and the captured beams that read it."""
         self.beam_graphs = None
-        self.packed = self.packed_norms = self.packed_ids = None
+        self.packed = self.packed_norms = self.packed_ids = self.packed_rows = None
         self.packed_codes = self.packed_code_norms = self.packed_center = self.packed_scale = None
 
 

@@ -6,9 +6,10 @@ layers (the reference's ``_query_k`` flow, src/antitopo_engine.h:853-928):
   * ``fused_query_batch``: entry seeds by a dense scan of the largest
     upper layer's members (``seeds > 0``) or by greedy descent; the whole
     bottom-layer beam search in one launch of the fused traversal
-    (ops/fused.py); an exact f32 rerank of the final beam
-    (src/antitopo_engine.h:845-848).  Over s8 blocks (``build_packed_i8``)
-    the seeds and the traversal are in code space.
+    (ops/fused.py: over the packed blocks, or over the rows layout by
+    neighbour id where the engine built that one); an exact f32 rerank of
+    the final beam (src/antitopo_engine.h:845-848).  Over s8 blocks
+    (``build_packed_i8``) the seeds and the traversal are in code space.
   * ``query_batch``: greedy descent, then ``beam_search``, which runs one
     traversal iteration per loop step on the host: select the best
     unexpanded beam entries, score their neighbours (row gathers, or the
@@ -42,8 +43,8 @@ import torch
 from expann_tpu_torch.models.graph import GraphIndex
 from expann_tpu_torch.ops import _kernels
 from expann_tpu_torch.ops.distance import batched_neighbour_dist2, squared_norms
-from expann_tpu_torch.ops.fused import fused_search
-from expann_tpu_torch.ops.packed import packed_score
+from expann_tpu_torch.ops.fused import fused_search, fused_search_rows
+from expann_tpu_torch.ops.packed import packed_score, packed_widths
 from expann_tpu_torch.utils.profiling import annotate
 
 INF = float("inf")
@@ -124,6 +125,12 @@ def kernel_query(graph: GraphIndex, q: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round((q - graph.packed_center) * graph.packed_scale), -127.0, 127.0)
 
 
+def entry_cost(graph: GraphIndex, seeds: int) -> int:
+    """The distance computations ``entry_beam`` costs a query: the entry
+    members' scan, or none after greedy descent."""
+    return graph.entry_members_n if graph.entry_members is not None and seeds > 0 else 0
+
+
 def entry_beam(
     graph: GraphIndex, q: torch.Tensor, EF: int, seeds: int
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -155,7 +162,7 @@ def entry_beam(
         seed_d, idx = torch.sort(md, dim=1, stable=True)
         bd0[:, :S] = seed_d[:, :S]
         bi0[:, :S] = graph.entry_members[idx[:, :S]]
-        return bd0, bi0, graph.entry_members_n
+        return bd0, bi0, entry_cost(graph, seeds)
     ep, ep_d = descend(graph, q, qn)
     if graph.packed_codes is not None:
         ep_d = (qkn + data_norms[ep.long()]) - 2.0 * torch.sum(qk * data[ep.long()].float(), dim=1)
@@ -538,9 +545,11 @@ def fused_query_batch(
     q_inv_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full batched query through the fused traversal over the packed
-    layout (bf16 or s8 blocks): entry seeds, traversal, exact f32 rerank
-    against the f32 query.  Returns ``(ids, d, ncomp)`` with ids / d
-    ``(B, k)`` and per-query distance computations ``(B,)``.
+    layout (bf16 or s8 blocks: K1 / K1-s8; the rows layout: K1-rows):
+    entry seeds, traversal, exact f32 rerank against the f32 query.
+    Returns ``(ids, d, ncomp)`` with ids / d ``(B, k)`` and per-query
+    distance computations ``(B,)``: the seeding's ``entry_cost`` and the
+    traversal's, which on the rows layout are the rows it read.
 
     ``q`` is f32, or int8 codes of the i8 query wire with their per-query
     ``q_inv_scale`` ``(B, 1)``: the query is then ``codes * q_inv_scale``
@@ -548,7 +557,7 @@ def fused_query_batch(
     that f32 query.  The beam width is ``EF = roundup(ef_cap, 128)``, as the
     JAX package sizes it, so that both packages run the same beams.
     """
-    if graph.packed is None:
+    if graph.packed is None and graph.packed_rows is None:
         raise ValueError("index has no packed-neighbour arrays")
     if q.dtype == torch.int8:
         if q_inv_scale is None:
@@ -558,10 +567,17 @@ def fused_query_batch(
     EF = ef_cap + ((-ef_cap) % 128)
     with annotate("expann.search.entry"):
         bd0, bi0, ncomp_seed = entry_beam(graph, q, EF, seeds)
+    ef = min(max(int(ef), k), EF)
     with annotate("expann.search.traverse"):
-        beam_ids, _, ncomp, _ = fused_search(
-            graph.packed, graph.packed_norms, graph.packed_ids, kernel_query(graph, q), bd0, bi0,
-            ef=min(max(int(ef), k), EF), expand=expand, cand=cand,
-        )
+        if graph.packed is not None:
+            beam_ids, _, ncomp, _ = fused_search(
+                graph.packed, graph.packed_norms, graph.packed_ids, kernel_query(graph, q), bd0, bi0,
+                ef=ef, expand=expand, cand=cand,
+            )
+        else:
+            beam_ids, _, ncomp, _ = fused_search_rows(
+                graph.packed_rows, graph.packed_norms, graph.packed_ids, packed_widths(graph.adj_bottom.shape[1])[0],
+                q, bd0, bi0, ef=ef, expand=expand, cand=cand,
+            )
     ids, d = rerank(graph, q, beam_ids, k)
     return ids, d, ncomp + ncomp_seed

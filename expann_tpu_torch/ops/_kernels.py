@@ -50,6 +50,7 @@ _SIGNATURES = {
     "expann_flat_topk_fixed_s8": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "expann_fused_search_bf16": [_P] * 10 + [_I] * 10 + [_P],
     "expann_fused_search_s8": [_P] * 10 + [_I] * 10 + [_P],
+    "expann_fused_search_rows_bf16": [_P] * 10 + [_I] * 11 + [_P],
     "expann_flat_topk_smem_bytes": [_I, _I],
     "expann_flat_topk_fixed_smem_bytes": [_I, _I],
     "expann_fused_search_smem_bytes": [_I] * 6,

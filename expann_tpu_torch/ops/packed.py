@@ -18,6 +18,12 @@ The JAX layout carries ids as biased f32 bit patterns inside one aux
 array (``ID_BIAS``) because TPU copies flush f32 denormals; here ids are a
 plain int32 array.
 
+Where the blocks do not fit the card (1M rows of 960 dims: 201 GB of bf16
+blocks), ``build_rows`` gives the rows layout instead: the bf16 corpus
+``(N+1, D)`` once (its row N zeros) with the same norm and id rows; the
+fused traversal then reads each neighbour's row by its id
+(ops/fused.py ``fused_search_rows``).
+
 ``packed_score`` scores the blocks of selected nodes for one traversal
 iteration of the per-iteration beam search (models/search.py
 ``beam_search``): on CUDA tensors the hand-written kernel
@@ -51,6 +57,36 @@ def packed_bytes(np1: int, r: int, d: int, dtype: str) -> int:
     return np1 * packed_widths(r)[0] * d * 2
 
 
+def rows_bytes(np1: int, d: int) -> int:
+    """Device bytes of the rows layout's bf16 corpus of ``np1`` rows."""
+    return np1 * d * 2
+
+
+def neighbour_rows(
+    row_norms: torch.Tensor,  # (N+1,) squared norms, +inf at N
+    adj: torch.Tensor,  # (N+1, R) int32, sentinel N padding
+    align: int = 16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(packed_norms, packed_ids)`` ``(N+1, R_tile)``: each node's
+    neighbour ids, sentinel padded to R_tile, and their norms (+inf at the
+    sentinel slots)."""
+    np1, r = adj.shape
+    r_tile = packed_widths(r, align)[1]
+    ids = torch.full((np1, r_tile), np1 - 1, dtype=torch.int32, device=adj.device)
+    ids[:, :r] = adj
+    return row_norms[ids.long()], ids
+
+
+def build_rows(
+    vectors: torch.Tensor,  # (N+1, D) f32 corpus with sentinel row
+    norms: torch.Tensor,  # (N+1,) f32, norms[N] = +inf
+    adj: torch.Tensor,  # (N+1, R) int32, sentinel N padding
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rows layout: ``(rows, packed_norms, packed_ids)``, the bf16
+    corpus and ``build_packed``'s norm and id rows, without the blocks."""
+    return (vectors.to(torch.bfloat16), *neighbour_rows(norms, adj))
+
+
 def pack_blocks(
     rows: torch.Tensor,  # (N+1, D) corpus or codes, sentinel row last
     row_norms: torch.Tensor,  # (N+1,) their squared norms, +inf at N
@@ -63,14 +99,12 @@ def pack_blocks(
     ``dtype``) with RS aligned to ``align``, gathered in row chunks so a
     gather never holds more than ``chunk * RS * D`` elements."""
     np1, r = adj.shape
-    sentinel = np1 - 1
-    rs, r_tile = packed_widths(r, align)
-    ids = torch.full((np1, r_tile), sentinel, dtype=torch.int32, device=adj.device)
-    ids[:, :r] = adj
+    rs = packed_widths(r, align)[0]
+    packed_norms, ids = neighbour_rows(row_norms, adj, align)
     packed = torch.empty((np1, rs, rows.shape[1]), dtype=dtype or rows.dtype, device=rows.device)
     for s in range(0, np1, chunk):
         packed[s : s + chunk] = rows[ids[s : s + chunk, :rs].long()].to(packed.dtype)
-    return packed, row_norms[ids.long()], ids
+    return packed, packed_norms, ids
 
 
 def build_packed(

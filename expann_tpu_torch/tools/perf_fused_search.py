@@ -1,5 +1,6 @@
 """Time the fused traversal (K1 on bf16 blocks, K1-s8 on s8 blocks,
-``ops/fused.fused_search``) on the card.
+``ops/fused.fused_search``; with ``--dtype rows`` K1-rows over the bf16
+rows layout of the same graph, ``ops/fused.fused_search_rows``) on the card.
 
 The canonical graph (``tools/perf_e2e_graph.canonical_graph``: n=56000,
 d=128, bench.py's build, read from ``--index`` or built there), served as
@@ -20,7 +21,9 @@ and the gathered rate: a block and its rows for every expansion, over the
 call's time (P2's random-gather rate at the same block size,
 ``tools/perf_pallas_gather``, is its yardstick).  A digest of the returned
 ids and the distance and iteration counts let two checkouts' lines be
-compared for identical results.  Prints one JSON line per reading, with the
+compared for identical results (K1-rows' ids, distances and iterations
+equal K1's; its ``ncomp`` counts rows, and its gathered bytes are those
+rows with their ids and norms).  Prints one JSON line per reading, with the
 card's name and power limit and the package it timed.
 
     python -m expann_tpu_torch.tools.perf_fused_search [--B 8,512,16384] [--ef 100,120]
@@ -98,12 +101,12 @@ def digest(*ts: torch.Tensor) -> str:
     return h.hexdigest()[:16]
 
 
-def ring_name(s8: bool, B: int, rs: int, rt: int) -> str:
+def ring_name(dtype: str, B: int, rs: int, rt: int) -> str:
     """``SLOTSxBYTES`` of the ring the launcher takes, where the checkout
     tells it (``ops/fused.ring_for``)."""
     if not hasattr(fused, "ring_for"):
         return "default"
-    nslot, slot, _ = fused.ring_for(s8, B, D, rs, rt, EF, E)
+    nslot, slot, _ = fused.ring_for(("bf16", "s8", "rows").index(dtype), B, D, rs, rt, EF, E)
     return f"{nslot}x{slot}"
 
 
@@ -111,7 +114,7 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
     ap.add_argument("--B", default="8,512,16384")
     ap.add_argument("--ef", default="100,120")
-    ap.add_argument("--dtype", default="bf16,s8")
+    ap.add_argument("--dtype", default="bf16,s8", help="comma-separated: bf16, s8, rows")
     ap.add_argument("--index", default="", help="graph index file (default: the canonical one)")
     ap.add_argument("--reps", type=int, default=200, help="calls timed at B < 1024 (5 at larger B)")
     ap.add_argument("--seed", type=int, default=0)
@@ -132,6 +135,10 @@ def main(argv=None) -> list:
         g = eng.graph
         n1, rs, _ = g.packed.shape
         rt = g.packed_norms.shape[1]
+        if dtype == "rows":
+            from expann_tpu_torch.ops.packed import build_rows
+
+            rows = build_rows(g.vectors, g.norms, g.adj_bottom)[0]
         rng = np.random.default_rng(args.seed)
         for B in (int(v) for v in args.B.split(",")):
             qh = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
@@ -140,6 +147,9 @@ def main(argv=None) -> list:
             reps = args.reps if B < 1024 else 5
             for ef in (int(v) for v in args.ef.split(",")):
                 def call():
+                    if dtype == "rows":
+                        return fused.fused_search_rows(rows, g.packed_norms, g.packed_ids, rs, qk, bd0, bi0, ef=ef,
+                                                       expand=E, cand=CAND)
                     return fused.fused_search(g.packed, g.packed_norms, g.packed_ids, qk, bd0, bi0, ef=ef,
                                               expand=E, cand=CAND)
 
@@ -147,19 +157,24 @@ def main(argv=None) -> list:
                 if not bool(torch.isfinite(dist[:, :ef]).all()) or bool((ids[:, :ef] >= n1 - 1).any()):
                     raise SystemExit(f"{dtype} B={B} ef={ef}: a live lane without a real entry")
                 ms = event_ms(call, reps=reps)
-                expansions = int(ncomp.sum()) // rs
-                blocks = expanded_blocks(g.packed, g.packed_norms, g.packed_ids, qk, bd0, bi0, ef, E,
-                                         fused.topt_for(CAND, E, rs), 8 * ef + 16)
-                gathered = traversal_bytes(expansions, 0, rs, D, rt, 1 if dtype == "s8" else 2, B, EF)[1]
-                row = {"kernel": "fused_search_s8" if dtype == "s8" else "fused_search", "dtype": dtype,
+                if dtype == "rows":  # ncomp counts rows; a row brings its id and norm
+                    expansions, blocks = None, None
+                    gathered = int(ncomp.sum()) * (D * 2 + 8)
+                else:
+                    expansions = int(ncomp.sum()) // rs
+                    blocks = expanded_blocks(g.packed, g.packed_norms, g.packed_ids, qk, bd0, bi0, ef, E,
+                                             fused.topt_for(CAND, E, rs), 8 * ef + 16)
+                    gathered = traversal_bytes(expansions, 0, rs, D, rt, 1 if dtype == "s8" else 2, B, EF)[1]
+                kernel = {"s8": "fused_search_s8", "rows": "fused_search_rows"}.get(dtype, "fused_search")
+                row = {"kernel": kernel, "dtype": dtype,
                        "B": B, "ef": ef, "EF": EF, "E": E, "cand": CAND, "RS": rs, "R_tile": rt,
                        "n": n1 - 1, "ms": ms, "blocks": blocks,
                        "gathered_tb_per_s": gathered / (ms * 1e-3) / 1e12,
-                       "gathered_yardstick": YARDSTICK[dtype], "expansions": expansions,
-                       "expansions_per_query": expansions / B,
+                       "gathered_yardstick": YARDSTICK.get(dtype), "expansions": expansions,
+                       "expansions_per_query": None if expansions is None else expansions / B,
                        "iters_mean": float(iters.float().mean()), "iters_max": int(iters.max()),
                        "ncomp_sum": int(ncomp.sum()), "result_digest": digest(ids, dist, ncomp, iters),
-                       "ring": ring_name(dtype == "s8", B, rs, rt),
+                       "ring": ring_name(dtype, B, rs, rt),
                        "reps": reps, "card": card, "package": expann_tpu_torch.__file__}
                 if blocks is not None:
                     bnd = traversal_bound(expansions, blocks, rs, D, rt, dtype, B, EF)

@@ -9,6 +9,8 @@ JAX:
 
 import gc
 import json
+import subprocess
+import sys
 import weakref
 from collections import Counter
 
@@ -21,8 +23,12 @@ from expann_tpu_torch.models.antitopo import AntitopoConfig, AntitopoEngine
 from expann_tpu_torch.models.build import BuildConfig, build_index
 from expann_tpu_torch.models.search import beam_search, query_batch
 from expann_tpu_torch.ops import _kernels
-from expann_tpu_torch.ops.fused import fused_search, fused_search_cuda, fused_search_plain, ring_for, topt_for
-from expann_tpu_torch.ops.packed import build_packed, build_packed_i8, pack_blocks, packed_score, packed_score_plain
+from expann_tpu_torch.models import antitopo
+from expann_tpu_torch.models.search import entry_beam
+from expann_tpu_torch.ops.fused import (fused_search, fused_search_cuda, fused_search_plain, fused_search_rows,
+                                        fused_search_rows_cuda, fused_search_rows_plain, ring_for, topt_for)
+from expann_tpu_torch.ops.packed import (build_packed, build_packed_i8, build_rows, pack_blocks, packed_score,
+                                         packed_score_plain, rows_bytes)
 from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain
 from expann_tpu_torch.parallel import distbuild
 from expann_tpu_torch.ops.distance import squared_norms
@@ -44,7 +50,7 @@ def test_kernels_build(dev):
     lib = _kernels.library()
     report = _kernels.build_report()
     for name in ("flat_topk_kernel", "flat_topk_fixed_kernel", "fused_search_kernel", "packed_score_kernel",
-                 "flat_topk_s8_kernel", "flat_topk_fixed_s8_kernel", "fused_search_s8_kernel",
+                 "flat_topk_s8_kernel", "flat_topk_fixed_s8_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel",
                  "probe_fused_kernel", "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel"):
         assert name in report
     assert lib.expann_flat_topk_smem_bytes(128, 10) > 0
@@ -456,7 +462,7 @@ def test_fused_search_rings_identical_to_plain(dev, s8, R, d):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     largest = {}
     for B in [1] + [k * sms for k in (1, 2, 3, 4, 6, 8, 10, 12, 16, 20)]:
-        largest[ring_for(s8, B, d, RS, Rt, EF, E)[:2]] = B
+        largest[ring_for(int(s8), B, d, RS, Rt, EF, E)[:2]] = B
     assert len(largest) >= 3, largest
     assert (1, 8192 // (d * (1 if s8 else 2)) * d * (1 if s8 else 2)) in largest, largest
     lim = 20 if s8 else 3
@@ -482,11 +488,159 @@ def test_fused_search_ring_follows_the_batch(dev):
     at once; each choice keeps the whole batch resident where it can."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for s8, block in ((False, 128 * 128 * 2), (True, 128 * 128)):
-        assert ring_for(s8, 1, 128, 128, 128, 128, 2)[:2] == (2, block)
+        assert ring_for(int(s8), 1, 128, 128, 128, 128, 2)[:2] == (2, block)
         for B in (1, sms, 4 * sms, 8 * sms, 16384):
-            nslot, slot, ctas = ring_for(s8, B, 128, 128, 128, 128, 2)
+            nslot, slot, ctas = ring_for(int(s8), B, 128, 128, 128, 128, 2)
             assert ctas * sms >= B or (nslot, slot, ctas) == (1, 8192, 16)
-        assert ring_for(s8, 16384, 128, 128, 128, 128, 2) == (1, 8192, 16)
+        assert ring_for(int(s8), 16384, 128, 128, 128, 128, 2) == (1, 8192, 16)
+
+
+@pytest.fixture(scope="module")
+def canonical_rows(tmp_path_factory):
+    """The canonical 56k graph (bench.py's build) with its bf16 blocks and
+    its rows layout, which shares the blocks' norm and id rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from expann_tpu_torch.tools.perf_e2e_graph import canonical_graph
+
+    eng = canonical_graph(str(tmp_path_factory.mktemp("idx") / "canonical.npz"), 56000, "cuda", use_packed=True,
+                          use_fused=True, query_expand=2, fused_cand=8)
+    eng._resolve_packed()
+    g = eng.graph
+    rows, rn, ri = build_rows(g.vectors, g.norms, g.adj_bottom)
+    assert torch.equal(rn, g.packed_norms) and torch.equal(ri, g.packed_ids)
+    return g, rows
+
+
+@pytest.mark.parametrize("B", [8, 512, 16384])
+def test_fused_search_rows_identical_to_k1_on_canonical(dev, canonical_rows, B):
+    """K1-rows against K1 on the canonical index from the engine's seed
+    beams (8 seeds, EF=128, ef=120, E=2, cand=8): beam ids, distances and
+    iteration counts identical (both score the same bf16 rows in the same
+    order); K1-rows counts no more rows than K1's RS a node."""
+    g, rows = canonical_rows
+    rng = np.random.default_rng(B)
+    q = torch.from_numpy(rng.standard_normal((B, 128)).astype(np.float32)).to(dev)
+    bd0, bi0, _ = entry_beam(g, q, 128, 8)
+    before = _kernels.launches["fused_search_rows"], _kernels.launches["fused_search"]
+    got = fused_search_rows(rows, g.packed_norms, g.packed_ids, g.packed.shape[1], q, bd0, bi0, 120, expand=2,
+                            cand=8)
+    assert _kernels.launches["fused_search_rows"] == before[0] + 1
+    ref = fused_search(g.packed, g.packed_norms, g.packed_ids, q, bd0, bi0, 120, expand=2, cand=8)
+    assert _kernels.launches["fused_search"] == before[1] + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]), int((got[0] != ref[0]).any(1).sum())
+    assert torch.equal(got[1], ref[1])
+    assert torch.equal(got[3], ref[3])
+    assert bool((got[2] <= ref[2]).all()) and int(got[2].sum()) > 0
+
+
+def _int_rows(dev, n, R, d, seed):
+    """Integer-valued rows in [-3, 3] (every distance exact in both
+    versions), the rows layout over a random graph whose every seventh
+    node's last quarter of neighbours is the sentinel."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+    vecs = torch.from_numpy(np.concatenate([x, np.zeros((1, d), np.float32)])).to(dev)
+    norms = (vecs * vecs).sum(1)
+    norms[n] = float("inf")
+    adj = np.stack([rng.choice(n, size=R, replace=False) for _ in range(n)] + [np.full(R, n)]).astype(np.int32)
+    adj[::7, R - R // 4 :] = n
+    rows, rn, ri = build_rows(vecs, norms, torch.from_numpy(adj).to(dev))
+    return vecs, rows, rn, ri, rng
+
+
+@pytest.mark.parametrize("B,E,cand,R,EF,ef", [(1, 2, 8, 96, 128, 120), (37, 2, 8, 96, 256, 200),
+                                              (700, 1, 4, 48, 128, 64), (3000, 2, 8, 96, 128, 120)])
+def test_fused_search_rows_wide_identical_to_plain(dev, B, E, cand, R, EF, ef):
+    """K1-rows at D=1024 (GIST's 960 padded; RS 96 and 48) against its plain
+    version on integer-valued rows, through the rings the batches take (the
+    iteration's rows all in flight at B=1, the default 8 KB slot of 4 rows
+    at B=3000): beams, distances, row counts and iterations identical."""
+    n, d = 2000, 1024
+    vecs, rows, rn, ri, rng = _int_rows(dev, n, R, d, seed=B + R)
+    rs = R + (-R) % 16
+    q = torch.from_numpy(rng.integers(-3, 4, size=(B, d)).astype(np.float32)).to(dev)
+    bd0 = torch.full((B, EF), float("inf"), device=dev)
+    bi0 = torch.full((B, EF), n, dtype=torch.int32, device=dev)
+    seeds = torch.from_numpy(rng.integers(0, n, size=(B, 4)).astype(np.int32)).to(dev)
+    bi0[:, :4] = seeds
+    bd0[:, :4] = ((q[:, None, :] - vecs[seeds.long()]) ** 2).sum(-1)
+    topt = topt_for(cand, E, rs)
+    before = _kernels.launches["fused_search_rows"]
+    got = fused_search_rows_cuda(rows, rn, ri, rs, q, bd0, bi0, ef, E, topt, 8 * ef + 16)
+    assert _kernels.launches["fused_search_rows"] == before + 1
+    ref = fused_search_rows_plain(rows, rn, ri, rs, q, bd0, bi0, ef, E, topt, 8 * ef + 16)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ids", "dist", "ncomp", "iters"), got, ref):
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    assert int(got[3].min()) >= 2
+
+
+def test_fused_search_rows_copy_timeout_traps(dev):
+    """A wait for a copy that never lands traps, as K1's does, instead of
+    hanging the card: K1-rows with its ``stall`` test hook (the id rows'
+    barrier expects 16 bytes more than it is sent) fails the launch, and
+    the process's next synchronize raises, after the 2 s timeout.  In a
+    process of its own: a trap leaves the CUDA context unusable."""
+    code = """
+import sys, time, torch
+from expann_tpu_torch.ops.fused import fused_search_rows_cuda
+from expann_tpu_torch.ops.packed import build_rows
+dev = torch.device("cuda")
+n, R, d = 64, 16, 128
+x = torch.randn((n + 1, d), device=dev)
+x[n] = 0
+nm = (x * x).sum(1)
+nm[n] = float("inf")
+adj = torch.randint(0, n, (n + 1, R), dtype=torch.int32, device=dev)
+adj[n] = n
+rows, rn, ri = build_rows(x, nm, adj)
+q = torch.randn((4, d), device=dev)
+bd0 = torch.full((4, 128), float("inf"), device=dev)
+bi0 = torch.full((4, 128), n, dtype=torch.int32, device=dev)
+bi0[:, 0] = 0
+bd0[:, 0] = 1.0
+t0 = time.perf_counter()
+try:
+    fused_search_rows_cuda(rows, rn, ri, 16, q, bd0, bi0, 64, 2, 4, 100, stall=16)
+    torch.cuda.synchronize()
+except RuntimeError as err:
+    print("raised after %.2f s: %s" % (time.perf_counter() - t0, str(err).splitlines()[0]))
+    sys.exit(0)
+print("no error")
+sys.exit(1)
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    secs = float(proc.stdout.split("raised after ")[1].split(" s")[0])
+    assert secs >= 1.9, proc.stdout
+
+
+def test_engine_serves_the_rows_layout_on_the_card(dev, monkeypatch):
+    """An engine at 3000 x 960 (padded to 1024) whose budget admits the rows
+    and not the blocks: the fused route launches K1-rows and no K1, counts
+    its rows and queries, and returns the block route's lists on the same
+    graph."""
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((3000, 960)).astype(np.float32)
+    q = rng.standard_normal((300, 960)).astype(np.float32)
+    cfg = AntitopoConfig(M=8, ef_construction=40, prune_cand=40, query_expand=2, fused_cand=8, entry_seeds=8,
+                         ef_search=60)
+    eng = AntitopoEngine(config=cfg, device="cuda")
+    eng.store_many_vectors(x)
+    eng.build()
+    blocks = eng.query_k_batch(q, 10)
+    assert eng.graph.packed is not None
+    eng.graph.drop_packed()
+    monkeypatch.setattr(antitopo, "PACKED_BUDGET_BYTES", rows_bytes(3001, 1024))
+    eng.set_ef_search(60)
+    before = _kernels.launches["fused_search_rows"], _kernels.launches["fused_search"]
+    got = eng.query_k_batch(q, 10)
+    assert eng.graph.packed is None and eng.graph.packed_rows is not None
+    assert _kernels.launches["fused_search_rows"] == before[0] + 1 and _kernels.launches["fused_search"] == before[1]
+    assert eng.num_queries == 300 and 300 * 16 < eng.num_rows_gathered < eng.num_distcomps
+    np.testing.assert_array_equal(got, blocks)
 
 
 def _assert_packed_matches_plain(packed, pn, pi, sel, q, topt, exact=False):
