@@ -9,8 +9,8 @@ Phases, one line each, stamped with the host seconds since the script started:
                    per launch, and the traversal kernels' resident queries
                    per SM at the canonical widths; no flat top-k kernel, K2,
                    K2-s8, K3 or K3-s8, not the block scorer K4, not the
-                   traversal kernels K1 and K1-s8 and not the probes P1 and
-                   P3 may spill);
+                   traversal kernels K1 and K1-s8, not the entry selection
+                   K5 and not the probes P1 and P3 may spill);
   3. flat_topk     the count-mode flat top-k kernel (K2) against its plain
                    version, random bf16 corpus n=56000, d=128, 4096 queries,
                    k=10; flat_fixed: the fixed-pass kernel (K3) the same way
@@ -48,7 +48,13 @@ Phases, one line each, stamped with the host seconds since the script started:
                    integer-valued rows of 1024 dims, 96 neighbours, 8192
                    queries at ef=80: ids, distances, rows and iterations
                    identical, 7 launches counted) and timed against the
-                   rows it read at 3.35 TB/s; K2 and K3
+                   rows it read at 3.35 TB/s; the entry selection K5
+                   (`entry_select`) held to its plain version at the
+                   million-row entry chunk (8192 queries x 20,864 members,
+                   s8-code products, 8 seeds: distances and ids identical,
+                   22 launches counted) and timed against G's bytes read
+                   once, beside the plain version's full stable sort and the
+                   library's topk; K2 and K3
                    are first held to
                    their plain version on the timed inputs (16384 queries
                    on the flat engine's corpus) with phase 3's limits, and
@@ -292,7 +298,7 @@ def bound(nbytes: float, ops: float, dtype: str = "bf16") -> tuple:
 KERNEL_NAMES = (
     "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel", "flat_topk_kernel", "flat_topk_s8_kernel",
     "fused_search_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel", "packed_score_kernel",
-    "probe_fused_kernel", "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel",
+    "probe_fused_kernel", "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel", "entry_select_kernel",
 )
 # P2's comparison: steps, odd, at least 4 rings of NBUF=8 on each block of
 # the grid (at most 8 blocks of 256 threads per SM, 132 SMs)
@@ -544,6 +550,68 @@ def hold_fused_rows(torch, dev, card: str, n: int = 1 << 20, B: int = 8192) -> d
     torch.cuda.empty_cache()
     return dict(err=err, launches=launched,
                 times=dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=kb[0], bound_by=kb[1]))
+
+
+def hold_entry_select(torch, dev, card: str, B: int = 8192, n: int = 20864, real: int = 20833, S: int = 8) -> dict:
+    """K5 at the million-row index's entry chunk against its plain version:
+    8192 queries against 20,864 entry members (1M / 48 real, the rest the
+    sentinel: a zero row at +inf), the product of random s8 codes in f32
+    (exact integers, so distances tie as the s8 layout's do), 8 seeds.
+    Distances and ids identical; the kernel timed against its bound (G read
+    once, the norms, members and seeds once, at 3.35 TB/s), beside the
+    plain version (the elementwise passes and the full stable sort) and the
+    library chain (the elementwise passes and ``torch.topk``).  Returns the
+    largest distance difference, the launches and the times."""
+    from expann_tpu_torch.ops import _kernels
+    from expann_tpu_torch.ops.distance import squared_norms
+    from expann_tpu_torch.ops.entry import entry_select_cuda, entry_select_plain
+    from expann_tpu_torch.utils.profiling import event_ms
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.zeros((n, D), device=dev)
+    x[:real].random_(-127, 128, generator=gen)
+    q = torch.empty((B, D), device=dev).random_(-127, 128, generator=gen)
+    xn = squared_norms(x)
+    xn[real:] = float("inf")
+    qn = squared_norms(q)
+    members = torch.randperm(MILLION_N, generator=gen, device=dev)[:n].to(torch.int32)
+    G = q @ x.T
+    del x, q
+    EF = 128
+    bd0 = torch.full((B, EF), float("inf"), device=dev)
+    bi0 = torch.full((B, EF), MILLION_N, dtype=torch.int32, device=dev)
+
+    def call():
+        entry_select_cuda(G, xn, qn, members, S, bd0, bi0)
+
+    def library():
+        return torch.topk((xn[None, :] + qn[:, None]) - 2.0 * G, S, dim=1, largest=False)
+
+    before = _kernels.launches["entry_select"]
+    call()
+    pd, pi = entry_select_plain(G, xn, qn, members, S)
+    torch.cuda.synchronize()
+    same_d = bool(torch.equal(bd0[:, :S].view(torch.int32), pd.view(torch.int32)))
+    same_i = bool(torch.equal(bi0[:, :S], pi))
+    err = float((bd0[:, :S] - pd).abs().max())
+    tied = int((pd[:, 1:] == pd[:, :-1]).any(1).sum())
+    ms = event_ms(call, reps=20)
+    launched = _kernels.launches["entry_select"] - before
+    plain_ms = event_ms(lambda: entry_select_plain(G, xn, qn, members, S), reps=3)
+    lib_ms = event_ms(library, reps=3)
+    kb = bound(B * n * 4 + 2 * n * 4 + B * 4 + B * S * 8, 3.0 * B * n, "f32")
+    phase("entry_select", B=B, n=n, real=real, S=S, distances_identical=same_d, ids_identical=same_i,
+          max_abs_err=f"{err:.3e}", rows_with_tied_seeds=tied, launches=launched, ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.3f}", library_ms=f"{lib_ms:.3f}", vs_library=f"{lib_ms / ms:.2f}x",
+          bound_ms=f"{kb[0]:.4f}", bound_by=kb[1], share=f"{kb[0] / ms:.4f}",
+          achieved_tb_per_s=f"{B * n * 4 / (ms * 1e-3) / 1e12:.3f}", card=card)
+    check(same_d and same_i, f"entry_select: K5 differs from its plain version (distances {same_d}, ids {same_i})")
+    check(tied > 0, "entry_select: no row's seeds tie: the inputs do not test the order")
+    check(launched == 22, f"entry_select: {launched} launches of K5 counted, 22 made")
+    del G, bd0, bi0, pd, pi
+    torch.cuda.empty_cache()
+    return dict(err=err, launches=launched,
+                times=dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=kb[0], bound_by=kb[1]))
 
 
 def hold_flat_s8(torch, label: str, fn, q, x, k: int) -> float:
@@ -1587,7 +1655,7 @@ def sharded_phase(torch, dev, ds, card: str, g, graph_recall: dict) -> dict:
     to K2 over the whole bf16 corpus except on ties (all counted, all
     ties), recall on the 400 queries >= 0.99; shard 0's K2 call held to its
     plain version; the S shard calls' time beside one call's; QPS.  (e) replicated_fused_query_dp on phase 4's graph,
-    65536 queries at ef=120: exactly S K1 launches, ids identical to one
+    65536 queries at ef=120: exactly S K5 and S K1 launches, ids identical to one
     fused_query_batch call; QPS beside that call's.  (f) sharded_build_step
     on the first SHARD_WAVE canonical rows at C = prune_cand, cap = M0:
     top-C lists and pruned rows against the one-shard call, >= 99% of rows
@@ -1726,7 +1794,9 @@ def sharded_phase(torch, dev, ds, card: str, g, graph_recall: dict) -> dict:
     dp, launches["dp"] = counted(lambda: replicated_fused_query_dp(gb, qr, K, 120, mesh, **kw))
     whole = fused_query_batch(gb, torch.from_numpy(qr).to(dev), 120, K, **kw)[0].cpu().numpy()
     n_same = int((dp == whole).all(1).sum())
-    check(launches["dp"] == {"fused_search": S}, f"replicated_fused_query_dp launched {launches['dp']}")
+    # each replica's seeded fused call: one K5 and one K1
+    check(launches["dp"] == {"fused_search": S, "entry_select": S},
+          f"replicated_fused_query_dp launched {launches['dp']}")
     check(n_same == QPS_QUERIES, f"replicated DP ids differ from one fused_query_batch call on "
                                  f"{QPS_QUERIES - n_same} rows")
     qps, runs = median_qps(lambda b: replicated_fused_query_dp(gb, b, K, 120, mesh, **kw), QPS_QUERIES)
@@ -2024,6 +2094,7 @@ def main() -> None:
         "block_gather_kernel": lib.expann_block_gather_smem_bytes(128, D, 4),
         "step_overhead_kernel": lib.expann_step_overhead_smem_bytes(128),
         "probe_lanes_kernel": 0,
+        "entry_select_kernel": 0,
     }
     # resident queries per SM of the traversal kernels at the canonical widths and batch
     ctas = {name: ring_for(kind, cfg.query_block, D, 128, 128, 128, cfg.query_expand)[2]
@@ -2038,7 +2109,7 @@ def main() -> None:
     no_spill = ("flat_topk_kernel", "flat_topk_s8_kernel", "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel",
                 "packed_score_kernel", "fused_search_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel",
                 "probe_fused_kernel",
-                "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel")
+                "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel", "entry_select_kernel")
     check(all(ptx[name]["spill_bytes"] == 0 for name in no_spill),
           f"a kernel that may not spill spills registers: {[(name, ptx[name]) for name in no_spill]}")
 
@@ -2255,6 +2326,8 @@ def main() -> None:
     del bd0, bi0, fargs
     rows_res = hold_fused_rows(torch, dev, card)
     times["fused_search_rows"] = rows_res["times"]
+    k5_res = hold_entry_select(torch, dev, card)
+    times["entry_select"] = k5_res["times"]
 
     t4 = cfg.packed_topt
     rt = g.packed_norms.shape[1]
@@ -2298,6 +2371,8 @@ def main() -> None:
     check(launches["batched"].get("flat_topk", 0) > 0 and launches["batched"].get("fused_search", 0) > 0,
           f"a kernel of the batched path was never launched: {launches['batched']}")
     check(launches["batched"].get("packed_score", 0) == 0, "400-query calls took the per-iteration route")
+    check(launches["batched"].get("entry_select", 0) == launches["batched"]["fused_search"],
+          f"a fused call of the batched path was not seeded by one K5 launch: {launches['batched']}")
     check(launches["flat_fixed"].get("flat_topk_fixed", 0) > 0, f"K3 never launched: {launches['flat_fixed']}")
     check(launches["small_batch"].get("packed_score", 0) > 0 and launches["small_batch"].get("fused_search", 0) == 0,
           f"small batches did not take the per-iteration route: {launches['small_batch']}")
@@ -2362,6 +2437,9 @@ def main() -> None:
          quant["flat_topk_fixed_s8"], flat_err["flat_fixed_s8"]),
         ("packed_score", "expann_tpu_torch/csrc/packed_score.cu", "expann_tpu/ops/pallas_beam.py:67",
          launches["small_batch"]["packed_score"] + wave["packed_score"], max(ps_err, wres["err"]["packed_score"])),
+        ("entry_select", "expann_tpu_torch/csrc/entry_select.cu", None,
+         launches["batched"]["entry_select"] + quant.get("entry_select", 0)
+         + mres["serve"].get("entry_select", 0) + k5_res["launches"], k5_res["err"]),
         ("probe_fused", "expann_tpu_torch/csrc/probes.cu", "tools/probe_fused.py:26",
          launches["probes"]["probe_fused"], pres["err"]["probe_fused"]),
         ("block_gather", "expann_tpu_torch/csrc/probes.cu", "tools/perf_pallas_gather.py:34",

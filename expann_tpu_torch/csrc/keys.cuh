@@ -1,8 +1,9 @@
 // Orderable keys of f32 values, shared by the kernels that reduce or sort
-// distances as unsigned integers (fused_search.cu, packed_score.cu,
-// probes.cu): the unsigned order of orderable(d) is the float order of d,
-// negatives included; -0 counts as +0.  A warp's min of such keys is one
-// `redux.sync` (__reduce_min_sync), not a chain of shuffles.
+// distances as unsigned integers (entry_select.cu, fused_search.cu,
+// packed_score.cu, probes.cu): the unsigned order of orderable(d) is the
+// float order of d, negatives included; -0 counts as +0.  A warp's min of
+// such keys is one `redux.sync` (__reduce_min_sync), not a chain of
+// shuffles.
 //
 // The flips are written with an arithmetic shift, not `?:` (a negative
 // value flips every bit, another only its sign), and the -0 test runs

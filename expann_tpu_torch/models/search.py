@@ -4,7 +4,8 @@ Two routes through the bottom layer, both after an entry from the upper
 layers (the reference's ``_query_k`` flow, src/antitopo_engine.h:853-928):
 
   * ``fused_query_batch``: entry seeds by a dense scan of the largest
-    upper layer's members (``seeds > 0``) or by greedy descent; the whole
+    upper layer's members (``seeds > 0``, selected from the scan's product
+    by ops/entry.py: K5 on the card) or by greedy descent; the whole
     bottom-layer beam search in one launch of the fused traversal
     (ops/fused.py: over the packed blocks, or over the rows layout by
     neighbour id where the engine built that one); an exact f32 rerank of
@@ -43,6 +44,7 @@ import torch
 from expann_tpu_torch.models.graph import GraphIndex
 from expann_tpu_torch.ops import _kernels
 from expann_tpu_torch.ops.distance import batched_neighbour_dist2, squared_norms
+from expann_tpu_torch.ops.entry import entry_select
 from expann_tpu_torch.ops.fused import fused_search, fused_search_rows
 from expann_tpu_torch.ops.packed import packed_score, packed_widths
 from expann_tpu_torch.utils.profiling import annotate
@@ -139,9 +141,11 @@ def entry_beam(
 
     ``seeds > 0`` with entry members: the exact top-``seeds`` of a dense
     scan of the members (the JAX package takes ``approx_max_k``, which is
-    exact off-TPU; ties keep member order); the scan costs the real member
-    count, not the sentinel lane padding.  Otherwise one entry from greedy
-    descent (in f32), not counted (as in the JAX package's fused path).
+    exact off-TPU; ties keep member order), selected from the scan's
+    product by ``ops/entry.entry_select`` (K5 on the card); the scan costs
+    the real member count, not the sentinel lane padding.  Otherwise one
+    entry from greedy descent (in f32), not counted (as in the JAX
+    package's fused path).
     Over s8 blocks the seed distances are code-space distances of the
     ``kernel_query`` (search.py:563-572, :596-604), so the traversal's
     comparisons stay in one space."""
@@ -157,11 +161,8 @@ def entry_beam(
         qk, qkn, data, data_norms = q, qn, graph.vectors, graph.norms
     if graph.entry_members is not None and seeds > 0:
         mem = graph.entry_members.long()
-        md = (data_norms[mem][None, :] + qkn[:, None]) - 2.0 * (qk @ data[mem].float().T)
         S = min(seeds, EF, mem.shape[0])
-        seed_d, idx = torch.sort(md, dim=1, stable=True)
-        bd0[:, :S] = seed_d[:, :S]
-        bi0[:, :S] = graph.entry_members[idx[:, :S]]
+        entry_select(qk @ data[mem].float().T, data_norms[mem], qkn, graph.entry_members, S, bd0, bi0)
         return bd0, bi0, entry_cost(graph, seeds)
     ep, ep_d = descend(graph, q, qn)
     if graph.packed_codes is not None:

@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flat_topk.cu", "fused_search.cu", "packed_score.cu", "probes.cu")
+SOURCES = ("entry_select.cu", "flat_topk.cu", "fused_search.cu", "packed_score.cu", "probes.cu")
 HEADERS = ("keys.cuh",)  # included by the sources: part of the library's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -65,6 +65,7 @@ _SIGNATURES = {
     "expann_step_overhead_smem_bytes": [_I],
     "expann_step_overhead_clusters": [_I] * 3,
     "expann_probe_lanes": [_P] * 2 + [_I] * 4 + [_P],
+    "expann_entry_select": [_P] * 4 + [_I] * 3 + [_P] * 2 + [_I] + [_P],
 }
 
 

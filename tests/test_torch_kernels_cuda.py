@@ -32,6 +32,7 @@ from expann_tpu_torch.ops.packed import (build_packed, build_packed_i8, build_ro
 from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain
 from expann_tpu_torch.parallel import distbuild
 from expann_tpu_torch.ops.distance import squared_norms
+from expann_tpu_torch.ops.entry import S_MAX, entry_select, entry_select_cuda, entry_select_plain
 from expann_tpu_torch.tools import perf_pallas_gather, probe_fused, probe_lanes, probe_step_overhead
 from expann_tpu_torch.utils import profiling
 from expann_tpu_torch.utils.persist import graph_from_numpy, graph_to_numpy
@@ -51,7 +52,8 @@ def test_kernels_build(dev):
     report = _kernels.build_report()
     for name in ("flat_topk_kernel", "flat_topk_fixed_kernel", "fused_search_kernel", "packed_score_kernel",
                  "flat_topk_s8_kernel", "flat_topk_fixed_s8_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel",
-                 "probe_fused_kernel", "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel"):
+                 "probe_fused_kernel", "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel",
+                 "entry_select_kernel"):
         assert name in report
     assert lib.expann_flat_topk_smem_bytes(128, 10) > 0
 
@@ -641,6 +643,128 @@ def test_engine_serves_the_rows_layout_on_the_card(dev, monkeypatch):
     assert _kernels.launches["fused_search_rows"] == before[0] + 1 and _kernels.launches["fused_search"] == before[1]
     assert eng.num_queries == 300 and 300 * 16 < eng.num_rows_gathered < eng.num_distcomps
     np.testing.assert_array_equal(got, blocks)
+
+
+def _entry_inputs(dev, B, n, ties, seed):
+    """K5's operands at (B, n): the raw product G of B queries against n
+    members, their norms (the last n // 17 members the sentinel: a zero
+    row at +inf), the queries' norms and the members' ids.  With ``ties``
+    the rows are small integers, as s8 codes are, an eighth of them
+    repeated, so that many distances are exactly equal; otherwise N(0,1)
+    rows, whose sums round."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D = 8 if ties else 128
+    if ties:
+        x = torch.randint(-2, 3, (n, D), generator=gen, device=dev).float()
+        x[n // 2 : n // 2 + n // 8] = x[: n // 8]
+        q = torch.randint(-2, 3, (B, D), generator=gen, device=dev).float()
+    else:
+        x = torch.randn((n, D), generator=gen, device=dev)
+        q = torch.randn((B, D), generator=gen, device=dev)
+    tail = n // 17
+    x[n - tail :] = 0.0
+    xn = squared_norms(x)
+    xn[n - tail :] = float("inf")
+    members = torch.randperm(4 * n, generator=gen, device=dev)[:n].to(torch.int32)
+    return q @ x.T, xn, squared_norms(q), members
+
+
+@pytest.mark.parametrize("ties", [True, False], ids=["ties", "rounded"])
+@pytest.mark.parametrize("S", [1, 8, S_MAX])
+@pytest.mark.parametrize("B", [1, 8, 8192])
+@pytest.mark.parametrize("n", [1024, 20864, 65536, 1001, 4100])
+def test_entry_select_identical_to_plain(dev, n, B, S, ties):
+    """K5 against its plain version (the full stable sort of the same f32
+    distances), bit for bit in distances and ids, at the widths of the
+    canonical (1024) and the million-row (20,864) entry layers, the most
+    the dense scan takes (65,536), and ragged widths (1001: scalar loads;
+    4100: a last pass whose 16-byte loads end inside the lanes' reach);
+    the beams' columns past S untouched."""
+    G, xn, qn, members = _entry_inputs(dev, B, n, ties, seed=n + B + S)
+    EF = 128
+    bd0 = torch.full((B, EF), -1.0, device=dev)
+    bi0 = torch.full((B, EF), -7, dtype=torch.int32, device=dev)
+    before = _kernels.launches["entry_select"]
+    entry_select(G, xn, qn, members, S, bd0, bi0)
+    assert _kernels.launches["entry_select"] == before + 1
+    pd, pi = entry_select_plain(G, xn, qn, members, S)
+    torch.cuda.synchronize()
+    assert torch.equal(bd0[:, :S].view(torch.int32), pd.view(torch.int32)), float((bd0[:, :S] - pd).abs().max())
+    assert torch.equal(bi0[:, :S], pi), int((bi0[:, :S] != pi).sum())
+    assert bool((bd0[:, S:] == -1.0).all()) and bool((bi0[:, S:] == -7).all())
+    if ties and S > 1 and B > 1:  # the rows hold the ties the order has to keep
+        assert bool((pd[:, 1:] == pd[:, :-1]).any())
+
+
+def test_entry_select_refuses_a_misaligned_or_strided_operand(dev):
+    G, xn, qn, members = _entry_inputs(dev, 8, 1024, True, seed=1)
+    beams = torch.zeros((8, 129), device=dev), torch.zeros((8, 129), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # 4-byte offset: not 16-byte aligned
+        entry_select_cuda(G, xn[1:], qn, members[1:], 8, *beams)
+    with pytest.raises(ValueError):
+        entry_select(G.T.contiguous().T, xn, qn, members, 8, *beams)
+    with pytest.raises(ValueError):
+        entry_select(G, xn, qn, members, S_MAX + 1, *beams)
+    with pytest.raises(ValueError):
+        entry_select(G, xn.cpu(), qn, members, 8, *beams)
+
+
+def _plain_entry_select(G, xn, qn, members, S, bd0, bi0):
+    """The plain version on the card in place of K5."""
+    bd0[:, :S], bi0[:, :S] = entry_select_plain(G, xn, qn, members, S)
+
+
+@pytest.mark.parametrize("layout", ["bf16", "s8", "rows"])
+def test_fused_query_batch_identical_with_entry_select(dev, canonical_rows, layout, monkeypatch):
+    """The fused route on the canonical graph (933 entry members, 8 seeds)
+    over bf16 blocks, s8 blocks and the rows layout: seeds, ids, distances
+    and distance computations identical with K5 and with the full stable
+    sort it replaces; one K5 launch a call."""
+    g, rows = canonical_rows
+    if layout == "s8":
+        (packed, pn, pi, codes, code_norms, center, scale) = build_packed_i8(g.vectors, g.adj_bottom)
+        for name, v in (("packed", packed), ("packed_norms", pn), ("packed_ids", pi), ("packed_codes", codes),
+                        ("packed_code_norms", code_norms), ("packed_center", center), ("packed_scale", scale)):
+            monkeypatch.setattr(g, name, v)
+    elif layout == "rows":
+        monkeypatch.setattr(g, "packed", None)
+        monkeypatch.setattr(g, "packed_rows", rows)
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((4096, 128)).astype(np.float32)).to(dev)
+    before = _kernels.launches["entry_select"]
+    seeds = entry_beam(g, q, 128, 8)
+    got = search.fused_query_batch(g, q, ef=120, k=10, ef_cap=128, expand=2, cand=8, seeds=8)
+    assert _kernels.launches["entry_select"] == before + 2
+    monkeypatch.setattr(search, "entry_select", _plain_entry_select)
+    ref_seeds = entry_beam(g, q, 128, 8)
+    ref = search.fused_query_batch(g, q, ef=120, k=10, ef_cap=128, expand=2, cand=8, seeds=8)
+    assert _kernels.launches["entry_select"] == before + 2
+    torch.cuda.synchronize()
+    assert g.entry_members_n < g.entry_members.shape[0] == 1024
+    for a, b in zip(seeds[:2], ref_seeds[:2]):
+        assert torch.equal(a, b)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_entry_select_launches_once_a_chunk(dev):
+    """An engine on the fused route seeds each chunk through one K5 launch,
+    beside its one traversal."""
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((6000, 128)).astype(np.float32)
+    q = rng.standard_normal((1000, 128)).astype(np.float32)
+    cfg = AntitopoConfig(M=8, ef_construction=40, prune_cand=40, query_expand=2, fused_cand=8, entry_seeds=8,
+                         ef_search=60, use_packed=True, use_fused=True, query_block=128)
+    eng = AntitopoEngine(config=cfg, device="cuda")
+    eng.store_many_vectors(x)
+    eng.build()
+    eng.query_k_batch(q[:10], 10)
+    assert eng.graph.entry_members is not None
+    before = _kernels.launches["entry_select"], _kernels.launches["fused_search"]
+    eng.query_k_batch(q, 10)
+    chunks = -(-1000 // 128)
+    assert (_kernels.launches["entry_select"], _kernels.launches["fused_search"]) == (before[0] + chunks,
+                                                                                       before[1] + chunks)
 
 
 def _assert_packed_matches_plain(packed, pn, pi, sel, q, topt, exact=False):
