@@ -448,13 +448,14 @@ def hold_fused(torch, label: str, g, q, ef: int, expand: int, cand: int, seeds: 
     hold the same id within D_ATOL / D_RTOL on bf16 blocks, identical on
     s8 (exact integer sums); with ``min_identical``, at least that share of
     the beams identical.  Returns the largest of those differences."""
-    from expann_tpu_torch.models.search import entry_beam, kernel_query, rerank
+    from expann_tpu_torch.models.search import entry_beam, rerank
     from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain, topt_for
 
-    name = "fused_search_s8" if g.packed_codes is not None else "fused_search"
-    topt = topt_for(cand, expand, g.packed.shape[1])
+    L = g.layout
+    name = "fused_search_s8" if L.code_space else "fused_search"
+    topt = topt_for(cand, expand, L.packed.shape[1])
     bd0, bi0, _ = entry_beam(g, q, 128, seeds)
-    fargs = (g.packed, g.packed_norms, g.packed_ids, kernel_query(g, q), bd0, bi0, ef, expand, topt, 8 * ef + 16)
+    fargs = (L.packed, L.norms, L.ids, L.kernel_query(q), bd0, bi0, ef, expand, topt, 8 * ef + 16)
     ki, kd, kn, _ = fused_search_cuda(*fargs)
     pi_, pd_, pn, _ = fused_search_plain(*fargs)
     torch.cuda.synchronize()
@@ -473,7 +474,7 @@ def hold_fused(torch, label: str, g, q, ef: int, expand: int, cand: int, seeds: 
     check(abs(nk - npl) <= 0.01 * npl, f"{label}: {name}: distcomps {nk} vs plain {npl}")
     n_ident = int((ki == pi_).all(1).sum())
     check(n_ident >= min_identical * q.shape[0], f"{label}: {name}: {n_ident}/{q.shape[0]} beams identical")
-    if g.packed_codes is not None:
+    if L.code_space:
         check(bool(torch.equal(kd[same], pd_[same])), f"{label}: {name}: beam distances differ by {err}")
     else:
         check(bool(torch.allclose(kd[same], pd_[same], rtol=D_RTOL, atol=D_ATOL)),
@@ -654,7 +655,7 @@ def quantized_phases(torch, dev, ds, graph, cfg, card: str, topt: int) -> dict:
     times.  Returns the launch counts of its two paths, K1-s8's largest
     beam-distance error and the s8 kernels' times."""
     from expann_tpu_torch import BruteForceEngine
-    from expann_tpu_torch.models.search import entry_beam, kernel_query
+    from expann_tpu_torch.models.search import entry_beam
     from expann_tpu_torch.ops import _kernels
     from expann_tpu_torch.ops.fused import fused_search_cuda, fused_search_plain, ring_for
     from expann_tpu_torch.ops.topk import flat_topk_cuda, flat_topk_fixed_cuda, flat_topk_plain, quantize_query_i8
@@ -693,26 +694,28 @@ def quantized_phases(torch, dev, ds, graph, cfg, card: str, topt: int) -> dict:
             check(gids.shape == (M_QUERIES, K) and rows_unique(gids),
                   f"compressed graph results ({wire} wire, ef={ef}) have wrong shape or duplicates")
             graph_rec[wire, ef] = recall(gids, ds.ground_truth)
-            phase("canonical_quantized", engine="graph", packed_dtype=str(graph.graph.packed.dtype).split(".")[-1],
-                  query_wire=wire, ef=ef, recall_at_10=f"{graph_rec[wire, ef]:.4f}",
+            phase("canonical_quantized", engine="graph",
+                  packed_dtype=str(graph.graph.layout.packed.dtype).split(".")[-1], query_wire=wire, ef=ef,
+                  recall_at_10=f"{graph_rec[wire, ef]:.4f}",
                   distcomps_per_query=f"{graph.num_distcomps / M_QUERIES:.1f}",
                   distcomps_compressed_per_query=f"{graph.num_distcomps_compressed / M_QUERIES:.1f}")
     graph.cfg.query_wire = "bf16"
     launches["quantized"] = dict(_kernels.launches)
     g = graph.graph
-    check(g.packed.dtype == torch.int8 and g.packed_codes is not None, f"graph.packed is {g.packed.dtype}, not int8")
+    check(g.layout.code_space and g.layout.packed.dtype == torch.int8,
+          f"the layout is {type(g.layout).__name__} of {g.layout.packed.dtype}, not s8 blocks")
     for wire in ("bf16", "i8"):
         if graph_rec[wire, 120] < 0.95:
             failures.append(f"compressed graph recall@10 at ef=120 ({wire} wire) {graph_rec[wire, 120]} < 0.95")
-    rs = g.packed.shape[1]
-    phase("canonical_quantized", packed_bytes=g.packed.numel(), rs=rs,
+    rs = g.layout.packed.shape[1]
+    phase("canonical_quantized", packed_bytes=g.layout.packed.numel(), rs=rs,
           flat_codes_bytes=flat8["i8", "count"][0]._x_fused.numel(),
           rerank_corpus_bytes=flat8["i8", "count"][0]._x.numel() * 4)
 
     # ---- 10. K1-s8 against its plain version, same code-space seeds --------
     qg = torch.from_numpy(ds.queries).to(torch.bfloat16).to(dev).float()
     EF, ef = 128, 120
-    args = (g.packed, g.packed_norms, g.packed_ids)
+    args = (g.layout.packed, g.layout.norms, g.layout.ids)
     fused_s8_err = hold_fused(torch, "fused_s8", g, qg, ef, cfg.query_expand, cfg.fused_cand, cfg.entry_seeds,
                               ds.ground_truth)
 
@@ -789,19 +792,20 @@ def quantized_phases(torch, dev, ds, graph, cfg, card: str, topt: int) -> dict:
     Bq = cfg.query_block
     qt = torch.from_numpy(rng.standard_normal((Bq, D)).astype(np.float32)).to(torch.bfloat16).to(dev).float()
     bd0, bi0, _ = entry_beam(g, qt, EF, cfg.entry_seeds)
-    targs = (*args, kernel_query(g, qt), bd0, bi0, ef, cfg.query_expand, topt, 8 * ef + 16)
+    targs = (*args, g.layout.kernel_query(qt), bd0, bi0, ef, cfg.query_expand, topt, 8 * ef + 16)
     ms = event_ms(lambda: fused_search_cuda(*targs), reps=5)
     plain_ms = event_ms(lambda: fused_search_plain(*targs), reps=1)
     # the bound counts every input byte once (phase 8's count, on s8 blocks)
     expansions = int(fused_search_cuda(*targs)[2].sum()) // rs
     blocks = expanded_blocks(*targs)
-    kb = traversal_bound(expansions, blocks, rs, D, g.packed_norms.shape[1], "s8", Bq, EF)
-    ring = ring_for(1, Bq, D, rs, g.packed_norms.shape[1], EF, cfg.query_expand)
+    kb = traversal_bound(expansions, blocks, rs, D, g.layout.norms.shape[1], "s8", Bq, EF)
+    ring = ring_for(1, Bq, D, rs, g.layout.norms.shape[1], EF, cfg.query_expand)
     times["fused_search_s8"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=kb["bound_ms"],
                                     bound_by=kb["bound_by"])
     phase("times", kernel="fused_search_s8", B=Bq, ef=ef, EF=EF, ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
           bound_ms=f"{kb['bound_ms']:.4f}", bound_by=kb["bound_by"], share=f"{kb['bound_ms'] / ms:.4f}",
-          expansions_per_query=f"{expansions / Bq:.1f}", blocks=blocks, blocks_of_layout=g.packed.shape[0] - 1,
+          expansions_per_query=f"{expansions / Bq:.1f}", blocks=blocks,
+          blocks_of_layout=g.layout.packed.shape[0] - 1,
           gathered_tb_per_s=f"{kb['gathered_bytes'] / (ms * 1e-3) / 1e12:.3f}",
           gathered_yardstick=repr(YARDSTICK["s8"]),
           ring=f"{ring[0]}x{ring[1]}", ctas_per_sm=ring[2], card=card)
@@ -1240,10 +1244,11 @@ def cli_phase(dev, ds, work: str, card: str) -> tuple:
         fresh_recall = score(fresh, ds, fresh.query_k_batch(ds.queries, K), 0.0, 0.0).recall
         g = fresh.graph
         phase("cli", job=f"ef_search_mult=6 use_compression={int(compressed)} prune_overflow=1",
-              packed_dtype=str(g.packed.dtype).split(".")[-1], recall_at_10=f"{recall_of[6, compressed, 1]:.4f}",
+              packed_dtype=str(g.layout.packed.dtype).split(".")[-1],
+              recall_at_10=f"{recall_of[6, compressed, 1]:.4f}",
               fresh_engine_recall_at_10=f"{fresh_recall:.4f}")
-        check(g.packed.dtype == (torch.int8 if compressed else torch.bfloat16),
-              f"a fresh engine with use_compression={compressed} serves {g.packed.dtype} blocks")
+        check(g.layout.packed.dtype == (torch.int8 if compressed else torch.bfloat16),
+              f"a fresh engine with use_compression={compressed} serves {g.layout.packed.dtype} blocks")
         check(fresh_recall == recall_of[6, compressed, 1],
               f"a fresh engine over the sweep's index (use_compression={compressed}) gives recall {fresh_recall}, "
               f"the reused job {recall_of[6, compressed, 1]}")
@@ -1473,10 +1478,10 @@ def wave_phase(torch, dev, ds, card: str, oneshot_recall: dict) -> dict:
     import dataclasses
 
     from expann_tpu_torch import AntitopoEngine, BruteForceEngine
+    from expann_tpu_torch.models.layout import Blocks
     from expann_tpu_torch.models.search import _earlier_dup
     from expann_tpu_torch.models.wavebuild import refine_index_wave
     from expann_tpu_torch.ops import _kernels
-    from expann_tpu_torch.ops.packed import build_packed
     from expann_tpu_torch.utils.profiling import event_ms
 
     cfg = graph_cfg()
@@ -1626,16 +1631,15 @@ def wave_phase(torch, dev, ds, card: str, oneshot_recall: dict) -> dict:
     qg = torch.from_numpy(ds.queries).to(torch.bfloat16).to(dev).float()
     err = {"fused_search_s8": hold_fused(torch, "wave_s8", wave_graph, qg, 120, cfg.query_expand,
                                          cfg.fused_cand, cfg.entry_seeds, ds.ground_truth)}
-    g = dataclasses.replace(wave_graph, packed_codes=None, packed_code_norms=None, packed_center=None,
-                            packed_scale=None)
-    g.packed, g.packed_norms, g.packed_ids = build_packed(g.vectors, g.norms, g.adj_bottom)
+    g = dataclasses.replace(wave_graph, layout=Blocks.build(wave_graph))
     err["fused_search"] = hold_fused(torch, "wave", g, qg, 120, cfg.query_expand, cfg.fused_cand, cfg.entry_seeds,
                                      ds.ground_truth)
     rng = np.random.default_rng(23)
     sel = torch.from_numpy(rng.integers(0, N, (M_QUERIES, 2)).astype(np.int32)).to(dev)
     sel[::5, 1] = N
     q400 = torch.from_numpy(ds.queries).to(dev)
-    err["packed_score"] = max(hold_packed(torch, "wave", (g.packed, g.packed_norms, g.packed_ids), sel, q400, t)
+    blocks = (g.layout.packed, g.layout.norms, g.layout.ids)
+    err["packed_score"] = max(hold_packed(torch, "wave", blocks, sel, q400, t)
                               for t in (0, cfg.packed_topt))
     del g, wave_graph
     return dict(launches=launches, err=err)
@@ -1672,9 +1676,9 @@ def sharded_phase(torch, dev, ds, card: str, g, graph_recall: dict) -> dict:
     from expann_tpu_torch.data.loader import generate_synthetic_clustered
     from expann_tpu_torch.models.build import BuildConfig
     from expann_tpu_torch.models.graph import make_corpus
+    from expann_tpu_torch.models.layout import Blocks
     from expann_tpu_torch.models.search import fused_query_batch
     from expann_tpu_torch.ops import _kernels
-    from expann_tpu_torch.ops.packed import build_packed
     from expann_tpu_torch.ops.topk import flat_topk, flat_topk_cuda
     from expann_tpu_torch.parallel.distbuild import build_distributed, flat_segments
     from expann_tpu_torch.parallel.sharded import (
@@ -1787,8 +1791,7 @@ def sharded_phase(torch, dev, ds, card: str, g, graph_recall: dict) -> dict:
     del flat, xall, qt, qb, xb, got_d
 
     # (e) data-parallel serving on phase 4's graph (bf16 blocks)
-    gb = dataclasses.replace(g, packed_codes=None, packed_code_norms=None, packed_center=None, packed_scale=None)
-    gb.packed, gb.packed_norms, gb.packed_ids = build_packed(gb.vectors, gb.norms, gb.adj_bottom)
+    gb = dataclasses.replace(g, layout=Blocks.build(g))
     kw = dict(expand=cfg.query_expand, cand=cfg.fused_cand, seeds=cfg.entry_seeds, ef_cap=128)
     qr = rng.standard_normal((QPS_QUERIES, D)).astype(np.float32)
     dp, launches["dp"] = counted(lambda: replicated_fused_query_dp(gb, qr, K, 120, mesh, **kw))
@@ -2184,8 +2187,8 @@ def main() -> None:
     # ---- 5. the traversal kernel against its plain version ----------------
     qg = torch.from_numpy(ds.queries).to(torch.bfloat16).to(dev).float()
     EF, ef = 128, 120
-    topt = topt_for(cfg.fused_cand, cfg.query_expand, g.packed.shape[1])
-    args = (g.packed, g.packed_norms, g.packed_ids)
+    topt = topt_for(cfg.fused_cand, cfg.query_expand, g.layout.packed.shape[1])
+    args = (g.layout.packed, g.layout.norms, g.layout.ids)
     fused_err = hold_fused(torch, "fused", g, qg, ef, cfg.query_expand, cfg.fused_cand, cfg.entry_seeds,
                            ds.ground_truth)
 
@@ -2202,7 +2205,7 @@ def main() -> None:
     # first node's rows, so 2 q.x > |x|^2 there (no |q|^2, no clamp)
     sel_neg = sel.clone()
     sel_neg[:, 0] = torch.where(sel[:, 0] == N, 0, sel[:, 0])
-    qneg = 3.0 * g.packed[sel_neg[:, 0].long(), 1].float()
+    qneg = 3.0 * g.layout.packed[sel_neg[:, 0].long(), 1].float()
     for t in (0, cfg.packed_topt):
         ps_err = max(ps_err, hold_packed(torch, "negative", args, sel_neg, qneg, t, min_negative=M_QUERIES // 2))
     # all-tie blocks: 4096 copies of one integer-valued row, each node with
@@ -2308,18 +2311,18 @@ def main() -> None:
     # expands (the plain version's record) with their norm and id rows,
     # queries and beams in and out (ncomp counts RS per expansion); the
     # gathered rate, a block an expansion
-    rs = g.packed.shape[1]
+    rs = g.layout.packed.shape[1]
     Bq = cfg.query_block
     expansions = int(fused_search_cuda(*fargs)[2].sum()) // rs
     blocks = expanded_blocks(*fargs)
-    kb = traversal_bound(expansions, blocks, rs, D, g.packed_norms.shape[1], "bf16", Bq, EF)
-    ring = ring_for(0, Bq, D, rs, g.packed_norms.shape[1], EF, cfg.query_expand)
+    kb = traversal_bound(expansions, blocks, rs, D, g.layout.norms.shape[1], "bf16", Bq, EF)
+    ring = ring_for(0, Bq, D, rs, g.layout.norms.shape[1], EF, cfg.query_expand)
     times["fused_search"] = dict(ms=fused_ms, plain_ms=fused_plain_ms, library_ms=None,
                                  bound_ms=kb["bound_ms"], bound_by=kb["bound_by"])
     phase("times", kernel="fused_search", B=Bq, ef=ef, EF=EF, ms=f"{fused_ms:.3f}",
           plain_ms=f"{fused_plain_ms:.3f}", bound_ms=f"{kb['bound_ms']:.4f}", bound_by=kb["bound_by"],
           share=f"{kb['bound_ms'] / fused_ms:.4f}", expansions_per_query=f"{expansions / Bq:.1f}",
-          blocks=blocks, blocks_of_layout=g.packed.shape[0] - 1,
+          blocks=blocks, blocks_of_layout=g.layout.packed.shape[0] - 1,
           gathered_tb_per_s=f"{kb['gathered_bytes'] / (fused_ms * 1e-3) / 1e12:.3f}",
           gathered_yardstick=repr(YARDSTICK["bf16"]),
           ring=f"{ring[0]}x{ring[1]}", ctas_per_sm=ring[2], card=card)
@@ -2330,7 +2333,7 @@ def main() -> None:
     times["entry_select"] = k5_res["times"]
 
     t4 = cfg.packed_topt
-    rt = g.packed_norms.shape[1]
+    rt = g.layout.norms.shape[1]
     for B in K4_B:
         qs = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
         sel = torch.from_numpy(rng.integers(0, N, (B, 2)).astype(np.int32)).to(dev)
@@ -2338,10 +2341,10 @@ def main() -> None:
 
         def k4_chain():
             s = sel.long()
-            blk = g.packed[s].view(B * 2, rs, D)
+            blk = g.layout.packed[s].view(B * 2, rs, D)
             qq = qs.to(torch.bfloat16)[:, None, :].expand(B, 2, D).reshape(B * 2, D, 1)
             dots = torch.bmm(blk, qq, out_dtype=torch.float32)[:, :, 0].view(B, 2, rs)
-            return torch.topk(g.packed_norms[s][:, :, :rs] - 2.0 * dots, t4, dim=2, largest=False)
+            return torch.topk(g.layout.norms[s][:, :, :rs] - 2.0 * dots, t4, dim=2, largest=False)
 
         ps_err = max(ps_err, hold_packed(torch, "timed", args, sel, qs, t4))
         ms = event_ms(lambda: packed_score_cuda(*args, sel, qs, t4), reps=reps)

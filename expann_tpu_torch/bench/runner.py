@@ -12,7 +12,7 @@ reference's index-file scheme does (:149-158).
 A reused job serves the built graph through a view of its own: a shallow
 copy that shares the vectors, norms, adjacency and upper layers, and holds
 its own uint8 codes and packed layout.  The engine derives those in place
-(``_attach_codes``, ``set_packed_dtype``, ``_resolve_packed``), so an
+(``_attach_codes``, ``set_packed_dtype``, ``_layout``), so an
 engine serving the build's graph itself would leave, say, s8 blocks behind
 for the next uncompressed job.  One view is kept per build and serving
 layout, so each layout is built once per build.
@@ -92,7 +92,7 @@ def _view(graph: GraphIndex) -> GraphIndex:
     """A shallow copy of ``graph`` that shares its built arrays and has no
     codes and no packed layout yet."""
     view = copy.copy(graph)
-    view.drop_packed()
+    view.layout = None
     view.codes = view.code_norms = view.quant_scale = view.quant_offset = None
     return view
 

@@ -7,15 +7,11 @@ bindings (src/antitopo_engine.h:103-260, src/pyrunner.cpp:55-91):
 ``query_k_numpy`` / ``set_ef_search`` / ``name`` / ``param_list``.
 
 Each chunk of a query call takes one of two routes, as in the JAX engine
-(antitopo.py:467-497, :562-579; ``route_fused``): the fused traversal over
-the packed layout (ops/fused.py) for throughput batches, or the
-per-iteration beam search (models/search.py ``query_batch``) for small
-ones, over the packed block scorer (ops/packed.py) or over row gathers.
-Where the packed blocks would pass ``PACKED_BUDGET_BYTES`` (a wide index:
-1M rows of 960 dims), a bf16 engine builds the rows layout instead
-(``ops/packed.build_rows``): the fused route reads each neighbour's row by
-its id (K1-rows), and the per-iteration route, which needs blocks, takes
-the gather beam.
+(antitopo.py:467-497, :562-579; ``route_fused``): the fused traversal of
+the serving layout (models/layout.py, chosen within ``PACKED_BUDGET_BYTES``)
+for throughput batches, or the per-iteration beam search (models/search.py
+``query_batch``) for small ones, over the layout's bf16 blocks or over row
+gathers.
 ``use_packed`` and ``use_fused`` default to ``"auto"``: on when the
 engine's device is CUDA, as the JAX engine's ``"auto"`` means on a TPU.  On
 a CUDA device every kernel is the hand-written one; on the CPU its plain
@@ -57,21 +53,19 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from expann_tpu_torch.models import layout as layouts
 from expann_tpu_torch.models.base import Engine, ParamList, _concat_pending, format_param
 from expann_tpu_torch.models.build import BuildConfig, build_index
 from expann_tpu_torch.models.graph import GraphIndex
-from expann_tpu_torch.models.search import entry_cost, fused_query_batch, query_batch
+from expann_tpu_torch.models.search import fused_query_batch, query_batch
 from expann_tpu_torch.models.wavebuild import extend_index_wave
 from expann_tpu_torch.ops.distance import pad_dim
-from expann_tpu_torch.ops.packed import build_packed, build_packed_i8, build_rows, packed_bytes, rows_bytes
 from expann_tpu_torch.ops.quantize import quantize_ranged, quantize_simple, ranged_scale_offset
 from expann_tpu_torch.utils.persist import index_exists, load_index, save_index
 from expann_tpu_torch.utils.profiling import annotate
 
-ENTRY_SCAN_MAX = 65536  # largest upper layer the dense entry scan takes
-# Largest packed layout (blocks only) the engine builds; above it a bf16
-# engine builds the rows layout (the bf16 corpus, within the same budget)
-# and an s8 one takes the gather route.  The JAX engine allows 10 GiB of a
+# Device bytes the serving layout may take (models/layout.choose: blocks,
+# else bf16 rows, else none).  The JAX engine allows 10 GiB of a
 # 16 GB TPU (EXPANN_PACKED_BUDGET_GB, antitopo.py:362-381); the same share
 # of the H100's 80 GB is 50 GiB, which leaves ~26 GB for the corpus, the
 # norm and id rows and the query workspace.  Canonical 56k: 0.92 GB (s8) /
@@ -143,18 +137,6 @@ class AntitopoConfig:
     def __post_init__(self):
         if self.M0 == 0:
             self.M0 = 2 * self.M
-
-
-def serving_layout(np1: int, r: int, d: int, dtype: str) -> Optional[str]:
-    """The layout the engine builds for ``np1`` rows of ``d`` dims and
-    adjacency width ``r``: ``"blocks"`` where the packed blocks fit
-    ``PACKED_BUDGET_BYTES``, else ``"rows"`` for bf16 blocks whose rows fit,
-    else None (the gather route)."""
-    if packed_bytes(np1, r, d, dtype) <= PACKED_BUDGET_BYTES:
-        return "blocks"
-    if dtype == "bf16" and rows_bytes(np1, d) <= PACKED_BUDGET_BYTES:
-        return "rows"
-    return None
 
 
 def route_fused(real: int, query_block: int, use_fused: bool, forced: bool, fused_qt: int) -> bool:
@@ -331,58 +313,40 @@ class AntitopoEngine(Engine):
 
     def set_packed_dtype(self, dtype: str) -> None:
         """Switch the packed layout ("bf16" | "i8") of a built index: the
-        packed arrays are dropped and rebuilt on the next query."""
+        serving layout is dropped and rebuilt on the next query."""
         if dtype not in PACKED_DTYPES:
             raise ValueError(f"packed_dtype={dtype!r}: one of {PACKED_DTYPES}")
         if dtype == self.cfg.packed_dtype:
             return
         self.cfg.packed_dtype = dtype
         if self.graph is not None:
-            self.graph.drop_packed()
+            self.graph.layout = None
 
     def _ef(self, k: int) -> int:
         if self.cfg.ef_search is not None:
             return max(int(self.cfg.ef_search), k)
         return max(k * self.cfg.ef_search_mult, k)
 
-    def _resolve_packed(self) -> bool:
-        """Whether queries use a packed layout (blocks or rows); when they
-        do, materialize it and the entry-member list on first use
-        (antitopo.py:338-433).  With ``use_compression`` the layout is s8.
-        ``serving_layout`` picks blocks or rows by ``PACKED_BUDGET_BYTES``;
-        where neither is built, queries take the gather route."""
+    def _layout(self) -> Optional[layouts.Blocks | layouts.Rows]:
+        """The serving layout queries use, built on first use
+        (antitopo.py:338-433; s8 blocks with ``use_compression``), or None
+        where the packed route is off or ``layouts.choose`` builds none
+        within ``PACKED_BUDGET_BYTES``: queries then take the gather route."""
         c = self.cfg
         on = self.device.type == "cuda" if c.use_packed == "auto" else bool(c.use_packed)
         if not on:
-            return False
+            return None
         if c.use_compression:
             self.set_packed_dtype("i8")
         g = self.graph
-        if g.packed is None and g.packed_rows is None:
-            layout = serving_layout(g.vectors.shape[0], g.adj_bottom.shape[1], g.vectors.shape[1], c.packed_dtype)
-            if layout is None:
-                return False
+        if g.layout is None:
+            kind = layouts.choose(g.vectors.shape[0], g.adj_bottom.shape[1], g.vectors.shape[1], c.packed_dtype,
+                                  PACKED_BUDGET_BYTES)
+            if kind is None:
+                return None
             with annotate("expann.engine.layout"):
-                if layout == "rows":
-                    g.packed_rows, g.packed_norms, g.packed_ids = build_rows(g.vectors, g.norms, g.adj_bottom)
-                elif c.packed_dtype == "i8":
-                    (g.packed, g.packed_norms, g.packed_ids, g.packed_codes, g.packed_code_norms, g.packed_center,
-                     g.packed_scale) = build_packed_i8(g.vectors, g.adj_bottom)
-                else:
-                    g.packed, g.packed_norms, g.packed_ids = build_packed(g.vectors, g.norms, g.adj_bottom)
-        if self.cfg.entry_seeds > 0 and g.entry_members is None and g.layers:
-            # largest upper layer within the dense-scan budget (layers are
-            # ordered bottom-up, so sizes decrease)
-            pick = next((L for L in g.layers if L.adj.shape[0] - 1 <= ENTRY_SCAN_MAX), None)
-            if pick is not None:
-                n_l = pick.adj.shape[0] - 1
-                mem = torch.nonzero(pick.slot[:-1] != n_l).flatten().to(torch.int32)
-                pad = (-mem.numel()) % 128
-                g.entry_members_n = int(mem.numel())
-                g.entry_members = torch.cat(
-                    [mem, torch.full((pad,), g.sentinel, dtype=torch.int32, device=mem.device)]
-                )
-        return True
+                g.layout = kind.build(g)
+        return g.layout
 
     def query_k_batch(self, queries: np.ndarray, k: int) -> np.ndarray:
         if self.graph is None:
@@ -392,11 +356,8 @@ class AntitopoEngine(Engine):
 
     def _query(self, queries: np.ndarray, k: int) -> np.ndarray:
         c = self.cfg
-        use_packed = self._resolve_packed()
-        if c.use_fused == "auto":
-            use_fused = use_packed and self.device.type == "cuda"
-        else:
-            use_fused = bool(c.use_fused) and use_packed
+        layout = self._layout()
+        use_fused = layout is not None and (self.device.type == "cuda" if c.use_fused == "auto" else bool(c.use_fused))
         with annotate("expann.engine.cast"):
             q = np.asarray(queries, dtype=np.float32)
             if q.ndim != 2:
@@ -409,12 +370,12 @@ class AntitopoEngine(Engine):
         # quantized serving: the fused route over s8 blocks when they exist,
         # otherwise the uint8 gather beam (antitopo.py:458-460, :493-495)
         compressed = bool(c.use_compression and self.graph.codes is not None)
-        res = []
-        ncomp_total = rows_total = 0
+        res, rows_read = [], []
+        ncomp_total = 0
         for start in range(0, q.shape[0], bs):
             chunk = q[start : start + bs]
             fused = route_fused(chunk.shape[0], bs, use_fused, c.use_fused is True, c.fused_qt)
-            if fused and (not compressed or self.graph.packed_codes is not None):
+            if fused and (not compressed or layout.code_space):
                 # queries travel as bf16 (2 B/dim) or as int8 absmax codes
                 # (1 B/dim) plus a per-query scale, and are used as f32 on
                 # the device for descent, traversal and rerank alike
@@ -442,14 +403,13 @@ class AntitopoEngine(Engine):
                     cand=c.fused_cand,
                     seeds=c.entry_seeds,
                     q_inv_scale=q_inv,
+                    rows_read=rows_read,
                 )
-                if self.graph.packed_rows is not None:  # K1-rows: a distance computation a row read
-                    rows_total += ncomp.sum() - chunk.shape[0] * entry_cost(self.graph, c.entry_seeds)
             else:
-                # the per-iteration route takes the f32 query as it is; the
-                # block scorer has no code-space transform, so an s8 layout
-                # takes the gather beam (antitopo.py:563-567), as does the
-                # rows layout, which has no blocks to score
+                # the per-iteration route takes the f32 query as it is; it
+                # scores the layout's blocks only where they are bf16 (the
+                # block scorer has no code-space transform, antitopo.py:
+                # 563-567; the rows layout has no blocks), else gathers
                 with annotate("expann.engine.upload"):
                     q_dev = pad_dim(torch.from_numpy(chunk).to(self.device), width)
                 ids, _, ncomp = query_batch(
@@ -458,7 +418,7 @@ class AntitopoEngine(Engine):
                     k=k,
                     ef=ef,
                     expand=c.query_expand,
-                    use_packed=use_packed and self.graph.packed is not None and c.packed_dtype != "i8",
+                    use_packed=layout is not None and layout.beam_blocks is not None,
                     packed_topt=c.packed_topt,
                     compressed=compressed,
                 )
@@ -474,7 +434,7 @@ class AntitopoEngine(Engine):
             self.num_distcomps += q.shape[0] * ef
         else:
             self.num_distcomps += int(ncomp_total)
-        self.num_rows_gathered += int(rows_total)
+        self.num_rows_gathered += int(sum(r.sum() for r in rows_read))
         self.num_queries += q.shape[0]
         return out
 

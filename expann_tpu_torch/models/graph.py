@@ -48,28 +48,13 @@ class GraphIndex:
     # affine parameters of "ranged" codes; None for "simple" (cast) codes
     quant_scale: Optional[torch.Tensor] = None  # () f32
     quant_offset: Optional[torch.Tensor] = None  # () f32
-    # packed-neighbour serving layout (ops/packed.py; derived from
-    # adj_bottom on first query, never persisted)
-    packed: Optional[torch.Tensor] = None  # (N + 1, RS, D_pad) bf16 or int8
-    packed_norms: Optional[torch.Tensor] = None  # (N + 1, R_tile) f32
-    packed_ids: Optional[torch.Tensor] = None  # (N + 1, R_tile) int32
-    # the rows layout (ops/packed.build_rows), built instead of the blocks
-    # where they do not fit: the bf16 corpus beside packed_norms / packed_ids
-    packed_rows: Optional[torch.Tensor] = None  # (N + 1, D_pad) bf16
-    # with int8 blocks (build_packed_i8): the code corpus for entry-point
-    # scoring and the query transform into code space
-    packed_codes: Optional[torch.Tensor] = None  # (N + 1, D_pad) int8
-    packed_code_norms: Optional[torch.Tensor] = None  # (N + 1,) f32, +inf at N
-    packed_center: Optional[torch.Tensor] = None  # (D_pad,) f32
-    packed_scale: Optional[torch.Tensor] = None  # () f32
     # members of the largest upper layer (dense entry-seed scan,
-    # models/search.fused_query_batch), sentinel-padded to a multiple of 128
+    # models/search.entry_members), sentinel-padded to a multiple of 128
     entry_members: Optional[torch.Tensor] = None  # (n_l_pad,) int32
     entry_members_n: int = 0  # real (unpadded) member count
-    # the packed beam's captured CUDA graphs (models/search.py), which read
-    # the packed arrays: they live and go with them, and a copy made by
-    # ``dataclasses.replace`` starts without them
-    beam_graphs: Optional[dict] = dataclasses.field(default=None, init=False, repr=False, compare=False)
+    # the serving layout (models/layout.py: Blocks, CodeBlocks or Rows),
+    # built on the first query, never persisted; None drops it
+    layout: Optional[object] = None
 
     @property
     def n(self) -> int:
@@ -79,12 +64,15 @@ class GraphIndex:
     def sentinel(self) -> int:
         return self.vectors.shape[0] - 1
 
-    def drop_packed(self) -> None:
-        """Forget the packed layout, blocks or rows (it is rebuilt on the
-        next query), and the captured beams that read it."""
-        self.beam_graphs = None
-        self.packed = self.packed_norms = self.packed_ids = self.packed_rows = None
-        self.packed_codes = self.packed_code_norms = self.packed_center = self.packed_scale = None
+    @property
+    def packed(self) -> Optional[torch.Tensor]:
+        """The layout's blocks (bf16 or s8), or None."""
+        return getattr(self.layout, "packed", None)
+
+    @property
+    def packed_rows(self) -> Optional[torch.Tensor]:
+        """The rows layout's bf16 corpus, or None."""
+        return getattr(self.layout, "rows", None)
 
 
 def make_corpus(x: np.ndarray, device) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -46,11 +46,10 @@ import torch
 
 from expann_tpu_torch.models.build import BuildConfig, build_index, sort_rows
 from expann_tpu_torch.models.graph import GraphIndex, UpperLayer
+from expann_tpu_torch.models.layout import Blocks
 from expann_tpu_torch.models.prune import antitopo_prune, pairwise_co_dist
 from expann_tpu_torch.models.search import entry_beam, fused_query_batch, query_batch, rerank
 from expann_tpu_torch.ops.distance import LANE, pad_dim, pairwise_dist2, squared_norms
-from expann_tpu_torch.ops.fused import fused_search
-from expann_tpu_torch.ops.packed import build_packed
 from expann_tpu_torch.ops.topk import flat_topk
 
 INF = float("inf")
@@ -245,16 +244,16 @@ class ShardedIndex:
 
     @property
     def packed(self) -> Optional[torch.Tensor]:  # (S, n_shard + 1, RS, D)
-        return None if self.shards[0].packed is None else self._stack(lambda g: g.packed)
+        return None if self.shards[0].layout is None else self._stack(lambda g: g.layout.packed)
 
     @property
     def packed_aux(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """The JAX aux array's two rows, stacked: norms ``(S, n_shard + 1,
         R_tile)`` f32 and ids as plain int32 (the port has no f32 id
         carrier)."""
-        if self.shards[0].packed is None:
+        if self.shards[0].layout is None:
             return None
-        return self._stack(lambda g: g.packed_norms), self._stack(lambda g: g.packed_ids)
+        return self._stack(lambda g: g.layout.norms), self._stack(lambda g: g.layout.ids)
 
 
 def build_sharded(x: np.ndarray, cfg: Optional[BuildConfig] = None, mesh=None) -> ShardedIndex:
@@ -365,12 +364,9 @@ def sharded_query_batch(index: ShardedIndex, queries: np.ndarray, k: int, ef: in
 
 def pack_sharded(index: ShardedIndex, dtype: torch.dtype = torch.bfloat16) -> ShardedIndex:
     """A copy of ``index`` whose shards carry the packed-neighbour layout
-    (``ops/packed.build_packed``), each on its shard's device."""
-    shards = []
-    for g in index.shards:
-        packed, pn, pi = build_packed(g.vectors, g.norms, g.adj_bottom, dtype=dtype)
-        shards.append(dataclasses.replace(g, packed=packed, packed_norms=pn, packed_ids=pi))
-    return dataclasses.replace(index, shards=tuple(shards))
+    (``models/layout.Blocks``), each on its shard's device."""
+    shards = tuple(dataclasses.replace(g, layout=Blocks.build(g, dtype)) for g in index.shards)
+    return dataclasses.replace(index, shards=shards)
 
 
 def sharded_packed_query(
@@ -390,7 +386,7 @@ def sharded_packed_query(
     merge.  Every shard's descent (its host syncs) runs first, then every
     shard's traversal and rerank are enqueued, then the merge is read back
     once.  ``qt`` is the JAX signature's; the port pads no batch."""
-    if index.shards[0].packed is None:
+    if index.shards[0].layout is None:
         raise ValueError("call pack_sharded(index) first")
     ef = max(int(ef), k)
     EF = ef + (-ef) % 128
@@ -402,8 +398,7 @@ def sharded_packed_query(
     seeds = [entry_beam(g, qd, EF, 0)[:2] for g, qd in zip(index.shards, qs)]
     lists = []
     for s, (g, qd, (bd0, bi0)) in enumerate(zip(index.shards, qs, seeds)):
-        beam = fused_search(g.packed, g.packed_norms, g.packed_ids, qd, bd0, bi0, ef=ef, expand=expand, cand=cand,
-                            max_iters=max_iters)[0]
+        beam = g.layout.traverse(qd, bd0, bi0, ef, expand, cand, max_iters)[0]
         ids, d = rerank(g, qd, beam, k)
         lists.append(_global(ids, d, s, ns, ns, dev0))
     return merge_lists(lists, k)[0].cpu().numpy()
@@ -472,7 +467,8 @@ def _replicas(graph: GraphIndex, mesh: Mesh) -> dict:
         moved = {f.name: getattr(graph, f.name).to(dev) for f in dataclasses.fields(graph)
                  if isinstance(getattr(graph, f.name), torch.Tensor)}
         layers = tuple(UpperLayer(slot=L.slot.to(dev), adj=L.adj.to(dev)) for L in graph.layers)
-        out[dev] = dataclasses.replace(graph, layers=layers, **moved)
+        layout = None if graph.layout is None else graph.layout.to(dev)
+        out[dev] = dataclasses.replace(graph, layers=layers, layout=layout, **moved)
     return out
 
 
@@ -505,8 +501,8 @@ def replicated_fused_query_dp(
     card) on each.  K1 ends each query on its own, so the ids equal one
     ``fused_query_batch`` call on the whole batch.  ``qt`` is the JAX
     signature's; the port pads no batch."""
-    if graph.packed is None:
-        raise ValueError("graph has no packed arrays")
+    if graph.layout is None:
+        raise ValueError("graph has no serving layout")
     return _data_parallel(graph, queries, mesh, lambda g, q: fused_query_batch(
         g, q, ef, k, ef_cap=ef_cap, expand=expand, cand=cand, seeds=seeds)[0])
 

@@ -49,8 +49,8 @@ from expann_tpu_torch.data.loader import generate_synthetic, generate_synthetic_
 from expann_tpu_torch.models.antitopo import PACKED_BUDGET_BYTES, AntitopoConfig, AntitopoEngine
 from expann_tpu_torch.models.brute_force import BruteForceEngine
 from expann_tpu_torch.models.build import BuildConfig, wave_size_for
+from expann_tpu_torch.models.layout import Blocks, choose
 from expann_tpu_torch.ops import _kernels
-from expann_tpu_torch.ops.packed import packed_bytes
 from expann_tpu_torch.models.wavebuild import build_index_wave, refine_index_wave
 from expann_tpu_torch.parallel.distbuild import build_distributed
 from expann_tpu_torch.utils.persist import load_index, save_index
@@ -243,7 +243,7 @@ def main(argv=None) -> list:
     qps_b = GRAPH_B if on_card else 0
     eng = graph_engine(graph, d, args.M, args.qb, args.wire, device)
     plist = [(e, ef, c, "i8") for e, ef, c in GRAPH_POINTS]
-    if packed_bytes(n + 1, graph.adj_bottom.shape[1], graph.vectors.shape[1], "bf16") <= PACKED_BUDGET_BYTES:
+    if choose(n + 1, graph.adj_bottom.shape[1], graph.vectors.shape[1], "bf16", PACKED_BUDGET_BYTES) is Blocks:
         plist.append((*BF16_POINT, "bf16"))
     if args.ef_list:
         plist = [(2, int(s), 8, "i8") for s in args.ef_list.split(",")]

@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 from expann_tpu_torch.models.build import BuildConfig, build_index
+from expann_tpu_torch.models.layout import Blocks
 from expann_tpu_torch.models.search import query_batch
-from expann_tpu_torch.ops.packed import build_packed
 from expann_tpu_torch.parallel.distbuild import build_distributed
 from expann_tpu_torch.parallel.sharded import (
     Mesh,
@@ -86,7 +86,7 @@ def dryrun_multichip(mesh: Mesh) -> dict:
 
     # data-parallel serving over the fused traversal
     graph = build_index(x, cfg, mesh[0])
-    graph.packed, graph.packed_norms, graph.packed_ids = build_packed(graph.vectors, graph.norms, graph.adj_bottom)
+    graph.layout = Blocks.build(graph)
     _ids_ok(replicated_fused_query_dp(graph, q, k=5, ef=16, mesh=mesh, qt=8), (32, 5), n,
             "replicated_fused_query_dp")
     return {"shards": S, "n": n, "n_shard": index.n_shard, "layers": len(index.shards[0].layers),

@@ -91,11 +91,17 @@ def _calls(eng, batches, block, device, captures=None):
     return ms, np.concatenate(lists), iters
 
 
+def _forget_captures(eng) -> None:
+    """Drop the captured beams the engine's layout keeps (on the CPU it
+    has no layout)."""
+    getattr(eng.graph.layout, "beam_graphs", {}).clear()
+
+
 def _replay_ms(eng, device) -> float:
     """Card milliseconds of one replay of the captured beam (its state is
     the last call's, whose queries are done: the same kernels on the same
     shapes, inert)."""
-    (g,) = eng.graph.beam_graphs.values()
+    (g,) = eng.graph.layout.beam_graphs.values()
     return profiling.event_ms(g.replay, reps=50) if device.type == "cuda" else float("nan")
 
 
@@ -105,7 +111,7 @@ def _capture_ms(eng, pool, device) -> dict:
         extra = []
         for r in range(3):
             qb = pool[r * b : (r + 1) * b]
-            eng.graph.beam_graphs = None
+            _forget_captures(eng)
             first, _, _ = _calls(eng, [qb, qb], search.BEAM_BLOCK, device)
             extra.append(first[0] - first[1])
         out[str(1 << (b - 1).bit_length())] = statistics.median(extra)
@@ -163,7 +169,7 @@ def main(argv=None) -> dict:
             for i in order:
                 block = arms[i]
                 if block is not None:  # the capture, outside the timed calls
-                    eng.graph.beam_graphs = None
+                    _forget_captures(eng)
                     _calls(eng, [qs[:1]], block, device)
                 ms_i, lists[names[i]], it = _calls(eng, [q[None] for q in qs], block, device)
                 ms[names[i]] += ms_i
@@ -178,14 +184,14 @@ def main(argv=None) -> dict:
             lists = {}
             for k in (mixed_arms if r % 2 == 0 else mixed_arms[::-1]):
                 captures = []
-                eng.graph.beam_graphs = None
+                _forget_captures(eng)
                 ms_k, lists[k], _ = _calls(eng, mixed_batches, None if k == "eager" else block0, device, captures)
                 mixed[k]["ms"] += ms_k
                 mixed[k]["captures"].append(len(captures))
             mixed_identical &= all(np.array_equal(lists[k], lists["eager"]) for k in mixed_arms)
     finally:
         search.BEAM_BLOCK = block0
-        eng.graph.beam_graphs = None
+        _forget_captures(eng)
 
     out = {"card": profiling.card_name() if on_card else "cpu", "torch": torch.__version__,
            "n": a.n, "ef": a.ef, "rounds": a.rounds, "queries": a.queries, "arms": {}}

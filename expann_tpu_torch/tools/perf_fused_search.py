@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 import expann_tpu_torch
-from expann_tpu_torch.models.search import entry_beam, kernel_query
+from expann_tpu_torch.models.search import entry_beam
 from expann_tpu_torch.ops import fused
 from expann_tpu_torch.utils.profiling import card_name, event_ms
 
@@ -131,10 +131,10 @@ def main(argv=None) -> list:
         eng = canonical_graph(args.index or IDX, 56000, dev, packed_dtype="i8" if dtype == "s8" else "bf16",
                               use_packed=True, use_fused=True, query_expand=E, fused_cand=CAND,
                               entry_seeds=SEEDS)
-        eng._resolve_packed()
+        L = eng._layout()
         g = eng.graph
-        n1, rs, _ = g.packed.shape
-        rt = g.packed_norms.shape[1]
+        n1, rs, _ = L.packed.shape
+        rt = L.norms.shape[1]
         if dtype == "rows":
             from expann_tpu_torch.ops.packed import build_rows
 
@@ -143,14 +143,14 @@ def main(argv=None) -> list:
         for B in (int(v) for v in args.B.split(",")):
             qh = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
             bd0, bi0, _ = entry_beam(g, qh, EF, SEEDS)
-            qk = kernel_query(g, qh)
+            qk = L.kernel_query(qh)
             reps = args.reps if B < 1024 else 5
             for ef in (int(v) for v in args.ef.split(",")):
                 def call():
                     if dtype == "rows":
-                        return fused.fused_search_rows(rows, g.packed_norms, g.packed_ids, rs, qk, bd0, bi0, ef=ef,
+                        return fused.fused_search_rows(rows, L.norms, L.ids, rs, qk, bd0, bi0, ef=ef,
                                                        expand=E, cand=CAND)
-                    return fused.fused_search(g.packed, g.packed_norms, g.packed_ids, qk, bd0, bi0, ef=ef,
+                    return fused.fused_search(L.packed, L.norms, L.ids, qk, bd0, bi0, ef=ef,
                                               expand=E, cand=CAND)
 
                 ids, dist, ncomp, iters = call()
@@ -162,7 +162,7 @@ def main(argv=None) -> list:
                     gathered = int(ncomp.sum()) * (D * 2 + 8)
                 else:
                     expansions = int(ncomp.sum()) // rs
-                    blocks = expanded_blocks(g.packed, g.packed_norms, g.packed_ids, qk, bd0, bi0, ef, E,
+                    blocks = expanded_blocks(L.packed, L.norms, L.ids, qk, bd0, bi0, ef, E,
                                              fused.topt_for(CAND, E, rs), 8 * ef + 16)
                     gathered = traversal_bytes(expansions, 0, rs, D, rt, 1 if dtype == "s8" else 2, B, EF)[1]
                 kernel = {"s8": "fused_search_s8", "rows": "fused_search_rows"}.get(dtype, "fused_search")

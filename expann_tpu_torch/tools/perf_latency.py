@@ -45,8 +45,7 @@ import numpy as np
 import torch
 
 from expann_tpu_torch.models.brute_force import rerank_exact
-from expann_tpu_torch.models.search import entry_beam, fused_query_batch, kernel_query, rerank
-from expann_tpu_torch.ops.fused import fused_search
+from expann_tpu_torch.models.search import entry_beam, fused_query_batch, rerank
 from expann_tpu_torch.ops.topk import flat_topk, flat_topk_prepare, quantize_corpus_i8
 from expann_tpu_torch.utils.profiling import card_name
 
@@ -172,7 +171,7 @@ def run_flat(x: np.ndarray, Bs, i8: bool, device, card: str, window: float) -> l
 
 
 def run_graph(eng, Bs, device, card: str, window: float) -> list:
-    eng._resolve_packed()
+    eng._layout()
     g = eng.graph
     EFW = 128  # beam width, EF rounded up to 128 as the engine sizes it
     rng = np.random.default_rng(3)
@@ -187,8 +186,7 @@ def run_graph(eng, Bs, device, card: str, window: float) -> list:
             return entry_beam(g, q, EFW, SEEDS)[1]
 
         def trav(q):
-            ids = fused_search(g.packed, g.packed_norms, g.packed_ids, kernel_query(g, q), bd0, bi0, ef=EF,
-                               expand=EXPAND, cand=CAND)[0]
+            ids = g.layout.traverse(q, bd0, bi0, EF, EXPAND, CAND)[0]
             return rerank(g, q, ids, K)[0]
 
         def whole(q):

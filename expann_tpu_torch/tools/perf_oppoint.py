@@ -24,8 +24,7 @@ import json
 import numpy as np
 import torch
 
-from expann_tpu_torch.models.search import entry_beam, kernel_query, rerank
-from expann_tpu_torch.ops.fused import fused_search
+from expann_tpu_torch.models.search import entry_beam, rerank
 from expann_tpu_torch.tools.bench_1m import recall
 from expann_tpu_torch.tools.perf_e2e_graph import canonical_data, canonical_graph
 from expann_tpu_torch.tools.perf_latency import slope_seconds
@@ -50,7 +49,7 @@ def main(argv=None, device="cuda") -> list:
     card = card_name() if device.type == "cuda" else "cpu"
 
     eng = canonical_graph(args.index, args.n, device, packed_dtype="i8", use_packed=True, use_fused=True)
-    eng._resolve_packed()
+    eng._layout()
     g = eng.graph
     ds = canonical_data(args.n, device)
     rng = np.random.default_rng(7)
@@ -65,8 +64,7 @@ def main(argv=None, device="cuda") -> list:
             bd0, bi0, _ = entry_beam(g, qb, EF, SEEDS)
 
             def trav(q, ef=ef, bd0=bd0, bi0=bi0):
-                ids = fused_search(g.packed, g.packed_norms, g.packed_ids, kernel_query(g, q), bd0, bi0, ef=ef,
-                                   expand=E, cand=C)[0]
+                ids = g.layout.traverse(q, bd0, bi0, ef, E, C)[0]
                 return rerank(g, q, ids, K)[0]
 
             lat, _, r2 = slope_seconds(trav, qb, device, args.window)

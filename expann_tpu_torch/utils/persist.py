@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from expann_tpu_torch.models.graph import GraphIndex, UpperLayer
+from expann_tpu_torch.models.layout import CodeBlocks
 
 FORMAT_VERSION = 1
 # derived arrays ``graph_from_numpy`` also takes (never persisted): uint8
@@ -31,6 +32,7 @@ DERIVED = {
     "packed_center": np.float32,
     "packed_scale": np.float32,
 }
+CODE_BLOCKS = [name for name in DERIVED if name.startswith("packed")]  # in CodeBlocks' field order
 
 
 def graph_to_numpy(graph: GraphIndex) -> Dict[str, np.ndarray]:
@@ -51,7 +53,7 @@ def graph_from_numpy(arrays: Dict[str, np.ndarray], device) -> GraphIndex:
     """Rebuild a GraphIndex on ``device`` from the persisted arrays (keys
     as written by ``save_index`` of either package), plus any ``DERIVED``
     arrays given, so that a graph can carry another package's codes and s8
-    layout (``packed_ids`` as plain int32 ids)."""
+    layout (``CodeBlocks``; ``packed_ids`` as plain int32 ids)."""
 
     def dev(name, dtype):
         return torch.from_numpy(np.array(arrays[name], dtype=dtype)).to(device)
@@ -61,13 +63,16 @@ def graph_from_numpy(arrays: Dict[str, np.ndarray], device) -> GraphIndex:
         UpperLayer(slot=dev(f"layer{i}_slot", np.int32), adj=dev(f"layer{i}_adj", np.int32))
         for i in range(num_layers)
     )
+    derived = {name: dev(name, dtype) for name, dtype in DERIVED.items() if arrays.get(name) is not None}
+    layout = CodeBlocks(*(derived.pop(name) for name in CODE_BLOCKS)) if "packed" in derived else None
     return GraphIndex(
         vectors=dev("vectors", np.float32),
         norms=dev("norms", np.float32),
         adj_bottom=dev("adj_bottom", np.int32),
         layers=layers,
         starting_vertex=int(arrays["starting_vertex"]),
-        **{name: dev(name, dtype) for name, dtype in DERIVED.items() if arrays.get(name) is not None},
+        layout=layout,
+        **derived,
     )
 
 

@@ -29,6 +29,7 @@ from expann_tpu_torch.models import antitopo as t_antitopo
 from expann_tpu_torch.models import search as t_search
 from expann_tpu_torch.models.antitopo import AntitopoConfig, AntitopoEngine, route_fused
 from expann_tpu_torch.models.brute_force import BruteForceEngine
+from expann_tpu_torch.models.layout import Blocks
 from expann_tpu_torch.models.search import beam_search, query_batch
 from expann_tpu_torch.ops.packed import build_packed, packed_score
 from expann_tpu_torch.ops.distance import squared_norms
@@ -63,7 +64,7 @@ def index(data, tmp_path_factory):
     jp, ja = j_build_packed(jg.vectors, jg.norms, jg.adj_bottom)
     jg = dataclasses.replace(jg, packed=jp, packed_aux=ja)
     tg, _ = load_index(path, "cpu")
-    tg.packed, tg.packed_norms, tg.packed_ids = build_packed(tg.vectors, tg.norms, tg.adj_bottom)
+    tg.layout = Blocks.build(tg)
     return path, jg, tg
 
 
@@ -203,8 +204,8 @@ def test_beam_search_matches_jax(data, index, mode, expand):
     tq = torch.from_numpy(qp)
     t_ids, t_d, t_n = beam_search(
         tg.vectors, tg.norms, tg.adj_bottom, tq, squared_norms(tq), torch.from_numpy(ep), EF, max_iters, N,
-        expand=expand, packed=tg.packed if packed else None, packed_norms=tg.packed_norms,
-        packed_ids=tg.packed_ids, packed_topt=topt,
+        expand=expand, packed=tg.layout.packed if packed else None, packed_norms=tg.layout.norms,
+        packed_ids=tg.layout.ids, packed_topt=topt,
     )
     jfn = jax.jit(
         functools.partial(
@@ -258,7 +259,8 @@ def test_blocks_of_iterations_match_one_read_an_iteration(data, index, monkeypat
     qp = torch.from_numpy(np.pad(q, ((0, 0), (0, 128 - D))))
     ep = torch.from_numpy(rng.integers(0, N, (q.shape[0], 1)).astype(np.int32))
     args = (tg.vectors, tg.norms, tg.adj_bottom, qp, squared_norms(qp), ep, EF, max_iters, N)
-    kw = dict(expand=E, packed=tg.packed, packed_norms=tg.packed_norms, packed_ids=tg.packed_ids, packed_topt=topt)
+    kw = dict(expand=E, packed=tg.layout.packed, packed_norms=tg.layout.norms, packed_ids=tg.layout.ids,
+              packed_topt=topt)
     one, blocks = [], []
     want = beam_search(*args, **kw, iters=one)
     monkeypatch.setattr(t_search, "BEAM_BLOCK", U)
@@ -291,7 +293,7 @@ def test_batches_share_a_padded_capture(data, index, monkeypatch, U):
     _, _, tg = index
     rng = np.random.default_rng(U)
     qp = torch.from_numpy(np.pad(q, ((0, 0), (0, 128 - D))))
-    kw = dict(expand=2, packed=tg.packed, packed_norms=tg.packed_norms, packed_ids=tg.packed_ids, packed_topt=8)
+    kw = dict(expand=2, packed=tg.layout.packed, packed_norms=tg.layout.norms, packed_ids=tg.layout.ids, packed_topt=8)
     calls = []
     for i, b in enumerate((7, 5, 8, 5, 3, 1)):
         start = int(rng.integers(0, q.shape[0] - b))
@@ -317,25 +319,26 @@ def test_batches_share_a_padded_capture(data, index, monkeypatch, U):
 
 
 def test_captured_beams_go_with_the_packed_arrays(data, index, monkeypatch):
-    """``query_batch`` keeps the captured beams on the index it serves: a
-    copy made by ``dataclasses.replace`` starts without them, and
-    ``drop_packed`` frees them with the arrays they read."""
+    """``query_batch`` keeps the captured beams on the serving layout whose
+    blocks they read: a graph copy that shares the layout shares them, a
+    new layout over the same blocks starts without them, and clearing the
+    layout frees them."""
     _, q, _ = data
     _, _, tg = index
     monkeypatch.setattr(t_search, "_BeamGraph", _EagerBlock)
     monkeypatch.setattr(t_search, "_replays", lambda q, packed, ortho_chosen: packed is not None)
-    g = dataclasses.replace(tg)
+    g = dataclasses.replace(tg, layout=Blocks(tg.layout.packed, tg.layout.norms, tg.layout.ids))
     qp = torch.from_numpy(np.pad(q[:3], ((0, 0), (0, 128 - D))))
     want = query_batch(g, qp, K, EF, use_packed=True, packed_topt=8)
-    (captured,) = g.beam_graphs.values()
-    assert tg.beam_graphs is None and dataclasses.replace(g).beam_graphs is None
+    (captured,) = g.layout.beam_graphs.values()
+    assert not tg.layout.beam_graphs and dataclasses.replace(g).layout.beam_graphs is g.layout.beam_graphs
     again = query_batch(g, qp, K, EF, use_packed=True, packed_topt=8)
-    assert all(torch.equal(a, b) for a, b in zip(again, want)) and list(g.beam_graphs.values()) == [captured]
+    assert all(torch.equal(a, b) for a, b in zip(again, want)) and list(g.layout.beam_graphs.values()) == [captured]
     ref = weakref.ref(captured)
     del captured
-    g.drop_packed()
+    g.layout = None
     gc.collect()
-    assert g.beam_graphs is None and ref() is None
+    assert g.packed is None and ref() is None
 
 
 @pytest.mark.parametrize("use_packed", [False, True])
@@ -382,7 +385,7 @@ def test_engines_per_iteration_route_match(data, index, knobs):
     x, q, gt = data
     path, _, _ = index
     jeng, teng = _engines(path, **knobs)
-    assert teng._resolve_packed() == bool(knobs)
+    assert (teng._layout() is not None) == bool(knobs)
     for i in (5, 123, 777):
         assert teng.query_k(x[i], K) == jeng.query_k(x[i], K)
     assert teng.query_k(q[0], K)[:5] == jeng.query_k(q[0], K)[:5]

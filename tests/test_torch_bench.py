@@ -211,7 +211,7 @@ def test_runner_reused_build_keeps_each_layout(tmp_path, monkeypatch):
     class Recording(AntitopoEngine):
         def query_k_batch(self, queries, k):
             ids = super().query_k_batch(queries, k)
-            served.append((self.cfg.use_compression, self.graph.packed.dtype, ids))
+            served.append((self.cfg.use_compression, self.graph.layout.packed.dtype, ids))
             return ids
 
     monkeypatch.setattr(runner, "AntitopoEngine", Recording)

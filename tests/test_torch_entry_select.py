@@ -9,11 +9,11 @@ import pytest
 import torch
 
 from expann_tpu_torch.models.antitopo import AntitopoConfig, AntitopoEngine
-from expann_tpu_torch.models.search import entry_beam, kernel_query
+from expann_tpu_torch.models.layout import CodeBlocks, Rows
+from expann_tpu_torch.models.search import entry_beam, entry_members
 from expann_tpu_torch.ops import _kernels, entry
 from expann_tpu_torch.ops.distance import squared_norms
 from expann_tpu_torch.ops.entry import S_MAX, entry_select, entry_select_plain
-from expann_tpu_torch.ops.packed import build_packed_i8, build_rows
 
 torch.set_num_threads(2)
 
@@ -173,8 +173,8 @@ def small_graph():
     eng = AntitopoEngine(config=cfg, device="cpu")
     eng.store_many_vectors(x)
     eng.build()
-    eng._resolve_packed()
-    assert eng.graph.entry_members is not None and eng.graph.entry_members_n > 8
+    eng._layout()
+    assert entry_members(eng.graph) is not None and eng.graph.entry_members_n > 8
     return eng.graph, torch.nn.functional.pad(q, (0, eng.graph.vectors.shape[1] - 32))
 
 
@@ -185,17 +185,13 @@ def test_entry_beam_seeds_are_the_full_sorts(small_graph, layout, monkeypatch):
     the beam at (+inf, sentinel)."""
     g, q = small_graph
     if layout == "s8":
-        _, _, _, codes, code_norms, center, scale = build_packed_i8(g.vectors, g.adj_bottom)
-        for name, v in (("packed_codes", codes), ("packed_code_norms", code_norms), ("packed_center", center),
-                        ("packed_scale", scale)):
-            monkeypatch.setattr(g, name, v)
+        monkeypatch.setattr(g, "layout", CodeBlocks.build(g))
     elif layout == "rows":
-        monkeypatch.setattr(g, "packed", None)
-        monkeypatch.setattr(g, "packed_rows", build_rows(g.vectors, g.norms, g.adj_bottom)[0])
+        monkeypatch.setattr(g, "layout", Rows.build(g))
     bd0, bi0, cost = entry_beam(g, q, 128, 8)
     mem = g.entry_members.long()
     if layout == "s8":
-        qk, data, norms = kernel_query(g, q), g.packed_codes, g.packed_code_norms
+        qk, data, norms = g.layout.kernel_query(q), g.layout.codes, g.layout.code_norms
     else:
         qk, data, norms = q, g.vectors, g.norms
     pd, pi = _sorted_seeds(qk @ data[mem].float().T, norms[mem], squared_norms(qk), g.entry_members, 8, 128)

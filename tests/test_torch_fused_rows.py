@@ -6,15 +6,17 @@ where K1 reads the node's packed block; both score the same rows in the
 same order, so over the same graph their beams, distances and iteration
 counts are identical, and only ``ncomp`` differs: RS a node against the
 non-sentinel rows.  The engine builds the rows layout where the blocks
-would pass ``PACKED_BUDGET_BYTES`` (``serving_layout``).
+would pass ``PACKED_BUDGET_BYTES`` (``models/layout.choose``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from expann_tpu_torch.models import antitopo, search
-from expann_tpu_torch.models.antitopo import PACKED_BUDGET_BYTES, AntitopoConfig, AntitopoEngine, serving_layout
+from expann_tpu_torch.models import antitopo
+from expann_tpu_torch.models import layout as layouts
+from expann_tpu_torch.models.antitopo import PACKED_BUDGET_BYTES, AntitopoConfig, AntitopoEngine
+from expann_tpu_torch.models.layout import Blocks, CodeBlocks, Rows, choose
 from expann_tpu_torch.ops.fused import fused_search_plain, fused_search_rows, fused_search_rows_plain, topt_for
 from expann_tpu_torch.ops.packed import build_packed, build_rows, packed_bytes, packed_widths, rows_bytes
 
@@ -119,27 +121,27 @@ def test_engine_takes_the_rows_route_over_the_budget(wide, monkeypatch):
     graph."""
     x, q = wide
     calls = []  # each rows traversal's count of the rows it read
-    real = search.fused_search_rows
+    real = layouts.fused_search_rows
 
     def counted(*a, **kw):
         out = real(*a, **kw)
         calls.append(int(out[2].sum()))
         return out
 
-    monkeypatch.setattr(search, "fused_search_rows", counted)
+    monkeypatch.setattr(layouts, "fused_search_rows", counted)
     eng = _engine(x, use_packed=True, use_fused=True, query_block=16)
     blocks = eng.query_k_batch(q, K)
     g = eng.graph
-    assert g.packed is not None and g.packed_rows is None and not calls
+    assert type(g.layout) is Blocks and g.packed is not None and g.packed_rows is None and not calls
     assert eng.num_rows_gathered == 0 and eng.num_queries == 40
     np1, r, d = g.vectors.shape[0], g.adj_bottom.shape[1], g.vectors.shape[1]
     assert d == 1024
     monkeypatch.setattr(antitopo, "PACKED_BUDGET_BYTES", rows_bytes(np1, d))
     assert packed_bytes(np1, r, d, "bf16") > antitopo.PACKED_BUDGET_BYTES
-    g.drop_packed()
+    g.layout = None
     eng.set_ef_search(40)
     got = eng.query_k_batch(q, K)
-    assert g.packed is None and g.packed_rows is not None and g.packed_rows.shape == (np1, d)
+    assert type(g.layout) is Rows and g.packed is None and g.packed_rows.shape == (np1, d)
     assert len(calls) == 3  # chunks of 16, 16 and 8
     np.testing.assert_array_equal(got, blocks)
     assert eng.num_queries == 40
@@ -158,8 +160,8 @@ def test_rows_layout_sends_small_chunks_to_the_gather_beam(wide, monkeypatch):
     eng = _engine(x, use_packed=True, use_fused=False)
     monkeypatch.setattr(antitopo, "PACKED_BUDGET_BYTES", rows_bytes(eng.graph.vectors.shape[0], 1024))
     got = eng.query_k_batch(q[:8], K)
-    assert eng.graph.packed_rows is not None and eng.num_rows_gathered == 0
-    eng.graph.drop_packed()
+    assert type(eng.graph.layout) is Rows and eng.num_rows_gathered == 0
+    eng.graph.layout = None
     eng.cfg.use_packed = False
     np.testing.assert_array_equal(got, eng.query_k_batch(q[:8], K))
 
@@ -178,16 +180,17 @@ def test_layout_follows_the_budget(np1, r, d, dtype):
     and no layout for s8."""
     fits = packed_bytes(np1, r, d, dtype) <= PACKED_BUDGET_BYTES
     assert rows_bytes(np1, d) <= PACKED_BUDGET_BYTES
-    assert serving_layout(np1, r, d, dtype) == ("blocks" if fits else "rows" if dtype == "bf16" else None)
+    blocks = CodeBlocks if dtype == "i8" else Blocks
+    assert choose(np1, r, d, dtype, PACKED_BUDGET_BYTES) is (blocks if fits else Rows if dtype == "bf16" else None)
 
 
 def test_gist_shape_takes_rows_and_small_engines_take_blocks(wide):
-    assert serving_layout(1000001, 96, 1024, "bf16") == "rows"
-    assert serving_layout(1000001, 96, 128, "i8") == "blocks"
+    assert choose(1000001, 96, 1024, "bf16", PACKED_BUDGET_BYTES) is Rows
+    assert choose(1000001, 96, 128, "i8", PACKED_BUDGET_BYTES) is CodeBlocks
     x, q = wide
     eng = _engine(x, use_packed=True, use_fused=True)
     eng.query_k_batch(q[:4], K)
-    assert eng.graph.packed is not None and eng.graph.packed_rows is None
+    assert type(eng.graph.layout) is Blocks and eng.graph.packed is not None and eng.graph.packed_rows is None
 
 
 @pytest.mark.parametrize("knobs", [dict(use_packed=True, use_fused=True), dict(use_packed=True, use_fused=True,

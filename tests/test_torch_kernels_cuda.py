@@ -21,6 +21,7 @@ import torch
 from expann_tpu_torch.models import search
 from expann_tpu_torch.models.antitopo import AntitopoConfig, AntitopoEngine
 from expann_tpu_torch.models.build import BuildConfig, build_index
+from expann_tpu_torch.models.layout import Blocks, CodeBlocks, Rows
 from expann_tpu_torch.models.search import beam_search, query_batch
 from expann_tpu_torch.ops import _kernels
 from expann_tpu_torch.models import antitopo
@@ -507,10 +508,10 @@ def canonical_rows(tmp_path_factory):
 
     eng = canonical_graph(str(tmp_path_factory.mktemp("idx") / "canonical.npz"), 56000, "cuda", use_packed=True,
                           use_fused=True, query_expand=2, fused_cand=8)
-    eng._resolve_packed()
+    eng._layout()
     g = eng.graph
-    rows, rn, ri = build_rows(g.vectors, g.norms, g.adj_bottom)
-    assert torch.equal(rn, g.packed_norms) and torch.equal(ri, g.packed_ids)
+    rows = Rows.build(g)
+    assert torch.equal(rows.norms, g.layout.norms) and torch.equal(rows.ids, g.layout.ids)
     return g, rows
 
 
@@ -525,10 +526,10 @@ def test_fused_search_rows_identical_to_k1_on_canonical(dev, canonical_rows, B):
     q = torch.from_numpy(rng.standard_normal((B, 128)).astype(np.float32)).to(dev)
     bd0, bi0, _ = entry_beam(g, q, 128, 8)
     before = _kernels.launches["fused_search_rows"], _kernels.launches["fused_search"]
-    got = fused_search_rows(rows, g.packed_norms, g.packed_ids, g.packed.shape[1], q, bd0, bi0, 120, expand=2,
-                            cand=8)
+    assert rows.rs == g.layout.packed.shape[1]
+    got = fused_search_rows(rows.rows, rows.norms, rows.ids, rows.rs, q, bd0, bi0, 120, expand=2, cand=8)
     assert _kernels.launches["fused_search_rows"] == before[0] + 1
-    ref = fused_search(g.packed, g.packed_norms, g.packed_ids, q, bd0, bi0, 120, expand=2, cand=8)
+    ref = fused_search(g.layout.packed, g.layout.norms, g.layout.ids, q, bd0, bi0, 120, expand=2, cand=8)
     assert _kernels.launches["fused_search"] == before[1] + 1
     torch.cuda.synchronize()
     assert torch.equal(got[0], ref[0]), int((got[0] != ref[0]).any(1).sum())
@@ -633,13 +634,13 @@ def test_engine_serves_the_rows_layout_on_the_card(dev, monkeypatch):
     eng.store_many_vectors(x)
     eng.build()
     blocks = eng.query_k_batch(q, 10)
-    assert eng.graph.packed is not None
-    eng.graph.drop_packed()
+    assert type(eng.graph.layout) is Blocks
+    eng.graph.layout = None
     monkeypatch.setattr(antitopo, "PACKED_BUDGET_BYTES", rows_bytes(3001, 1024))
     eng.set_ef_search(60)
     before = _kernels.launches["fused_search_rows"], _kernels.launches["fused_search"]
     got = eng.query_k_batch(q, 10)
-    assert eng.graph.packed is None and eng.graph.packed_rows is not None
+    assert type(eng.graph.layout) is Rows and eng.graph.packed is None
     assert _kernels.launches["fused_search_rows"] == before[0] + 1 and _kernels.launches["fused_search"] == before[1]
     assert eng.num_queries == 300 and 300 * 16 < eng.num_rows_gathered < eng.num_distcomps
     np.testing.assert_array_equal(got, blocks)
@@ -722,13 +723,9 @@ def test_fused_query_batch_identical_with_entry_select(dev, canonical_rows, layo
     sort it replaces; one K5 launch a call."""
     g, rows = canonical_rows
     if layout == "s8":
-        (packed, pn, pi, codes, code_norms, center, scale) = build_packed_i8(g.vectors, g.adj_bottom)
-        for name, v in (("packed", packed), ("packed_norms", pn), ("packed_ids", pi), ("packed_codes", codes),
-                        ("packed_code_norms", code_norms), ("packed_center", center), ("packed_scale", scale)):
-            monkeypatch.setattr(g, name, v)
+        monkeypatch.setattr(g, "layout", CodeBlocks.build(g))
     elif layout == "rows":
-        monkeypatch.setattr(g, "packed", None)
-        monkeypatch.setattr(g, "packed_rows", rows)
+        monkeypatch.setattr(g, "layout", rows)
     rng = np.random.default_rng(5)
     q = torch.from_numpy(rng.standard_normal((4096, 128)).astype(np.float32)).to(dev)
     before = _kernels.launches["entry_select"]
@@ -947,7 +944,7 @@ def test_query_batch_matches_cpu(dev, use_packed):
     out = {}
     for g in (g_dev, g_cpu):
         if use_packed:
-            g.packed, g.packed_norms, g.packed_ids = build_packed(g.vectors, g.norms, g.adj_bottom)
+            g.layout = Blocks.build(g)
         before = _kernels.launches["packed_score"]
         qg = torch.from_numpy(q).to(g.vectors.device)
         ids, _, ncomp = query_batch(g, qg, 10, 64, expand=2, use_packed=use_packed, packed_topt=8)
@@ -970,7 +967,7 @@ def beam_graph_case():
     x = rng.standard_normal((3000, 64)).astype(np.float32)
     q = np.pad(rng.standard_normal((66, 64)).astype(np.float32), ((0, 0), (0, 64)))
     g = build_index(x, BuildConfig(M=16, ef_construction=80), "cuda")
-    g.packed, g.packed_norms, g.packed_ids = build_packed(g.vectors, g.norms, g.adj_bottom)
+    g.layout = Blocks.build(g)
     return x, torch.from_numpy(q).cuda(), g
 
 
@@ -991,7 +988,7 @@ def test_beam_graph_identical_to_eager(beam_graph_case, monkeypatch, B, topt, E,
     _, q, g = beam_graph_case
     rng = np.random.default_rng(B + topt + E)
     graphs = {}
-    kw = dict(expand=E, packed=g.packed, packed_norms=g.packed_norms, packed_ids=g.packed_ids, packed_topt=topt)
+    kw = dict(expand=E, packed=g.layout.packed, packed_norms=g.layout.norms, packed_ids=g.layout.ids, packed_topt=topt)
     got = []
     for start in (0, B):
         qb = q[start : start + B]
@@ -1033,17 +1030,17 @@ def test_beam_graph_recaptured_after_a_new_layout(beam_graph_case, monkeypatch):
     for change in ("first", "packed_dtype", "build"):
         if change == "packed_dtype":
             eng.set_packed_dtype("i8")
-            assert eng.graph.beam_graphs is None
+            assert eng.graph.layout is None
             eng.query_k_batch(qh, 10)  # the gather beam over the s8 layout: no graph
-            assert eng.graph.beam_graphs is None
+            assert type(eng.graph.layout) is CodeBlocks and not eng.graph.layout.beam_graphs
             eng.set_packed_dtype("bf16")
         elif change == "build":
             eng.store_many_vectors(x[2500:])
             eng.build()
-            assert eng.graph.beam_graphs is None
+            assert eng.graph.layout is None
         replayed, eager = _engine_lists(eng, qh, monkeypatch)
         np.testing.assert_array_equal(replayed, eager)
-        (captured,) = eng.graph.beam_graphs.values()
+        (captured,) = eng.graph.layout.beam_graphs.values()
         assert captured is not prev, change
         prev = captured
     ref = weakref.ref(captured)

@@ -24,10 +24,11 @@ from expann_tpu.utils.persist import save_index as j_save_index
 from expann_tpu_torch.models import antitopo as t_antitopo
 from expann_tpu_torch.models.antitopo import AntitopoConfig, AntitopoEngine
 from expann_tpu_torch.models.brute_force import BruteForceEngine
+from expann_tpu_torch.models.layout import Blocks, CodeBlocks
 from expann_tpu_torch.models.search import query_batch
 from expann_tpu_torch.ops import quantize as t_quantize
 from expann_tpu_torch.ops.fused import fused_search
-from expann_tpu_torch.ops.packed import build_packed_i8, pack_blocks
+from expann_tpu_torch.ops.packed import build_packed_i8, pack_blocks, packed_bytes
 from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain, quantize_corpus_i8, quantize_query_i8
 from expann_tpu_torch.utils.persist import graph_from_numpy, graph_to_numpy, load_index
 
@@ -298,7 +299,8 @@ def test_compressed_engine_fused_route_matches_jax(gauss, jax_compressed, seeds,
                         query_wire=wire)
     t_ids = teng.query_k_batch(q, K)
     g = teng.graph
-    assert g.packed.dtype == torch.int8 and g.packed.shape[1] % 32 == 0 and g.codes.dtype == torch.uint8
+    assert type(g.layout) is CodeBlocks and g.packed.dtype == torch.int8 and g.packed.shape[1] % 32 == 0
+    assert g.codes.dtype == torch.uint8
     assert _overlap(t_ids, j_ids) >= 0.99
     assert abs(_recall(t_ids, gt) - _recall(j_ids, gt)) <= 0.005
     assert teng.num_distcomps == jeng.num_distcomps == q.shape[0] * EF
@@ -369,9 +371,10 @@ def test_graph_carries_jax_codes(sift_like):
     arrays.update(codes=np.asarray(jeng.graph.codes), code_norms=np.asarray(jeng.graph.code_norms))
     arrays.update(_jax_i8_arrays(np.asarray(jeng.graph.vectors), np.asarray(jeng.graph.adj_bottom)))
     g = graph_from_numpy(arrays, "cpu")
-    assert g.codes.dtype == torch.uint8 and g.packed.dtype == torch.int8 and g.packed_scale.shape == ()
+    assert type(g.layout) is CodeBlocks and g.layout.scale.shape == ()
+    assert g.codes.dtype == torch.uint8 and g.packed.dtype == torch.int8
     np.testing.assert_array_equal(g.codes.numpy(), np.asarray(jeng.graph.codes))
-    assert g.quant_scale is None and g.packed_center.shape == (128,)
+    assert g.quant_scale is None and g.layout.center.shape == (128,)
 
 
 # ---- 7. the layout flip and the memory guard ---------------------------------------
@@ -386,17 +389,17 @@ def test_compression_flip_rebuilds_an_s8_layout(gauss, jax_compressed):
     knobs = dict(use_packed=True, use_fused=True)
     eng = _port_engine(path, **knobs)
     eng.query_k_batch(q, K)
-    assert eng.graph.packed.dtype == torch.bfloat16
+    assert type(eng.graph.layout) is Blocks and eng.graph.packed.dtype == torch.bfloat16
     eng.cfg.use_compression = True
     eng._attach_codes()
-    assert eng.graph.packed.dtype == torch.bfloat16  # dropped lazily, at the next query
+    assert type(eng.graph.layout) is Blocks  # dropped lazily, at the next query
     flipped = eng.query_k_batch(q, K)
     assert eng.graph.packed.dtype == torch.int8 and eng.cfg.packed_dtype == "i8"
-    assert eng.graph.packed_codes is not None
+    assert type(eng.graph.layout) is CodeBlocks
     fresh = _port_engine(path, use_compression=True, **knobs)
     np.testing.assert_array_equal(flipped, fresh.query_k_batch(q, K))
     eng.set_packed_dtype("bf16")  # dropped at once; the next query rebuilds s8 (use_compression)
-    assert eng.graph.packed is None and eng.graph.packed_codes is None
+    assert eng.graph.layout is None and eng.graph.packed is None
     with pytest.raises(ValueError):
         eng.set_packed_dtype("i4")
 
@@ -411,12 +414,12 @@ def test_packed_budget_sends_queries_to_the_gather_route(gauss, jax_compressed, 
     real = t_antitopo.query_batch
     monkeypatch.setattr(t_antitopo, "query_batch", lambda *a, **kw: calls.append(kw) or real(*a, **kw))
     eng = _port_engine(path, use_packed=True, use_fused=True, use_compression=True)
-    need = t_antitopo.packed_bytes(N + 1, eng.graph.adj_bottom.shape[1], 128, "i8")
+    need = packed_bytes(N + 1, eng.graph.adj_bottom.shape[1], 128, "i8")
     monkeypatch.setattr(t_antitopo, "PACKED_BUDGET_BYTES", need - 1)
     ids = eng.query_k_batch(q, K)
-    assert eng.graph.packed is None and calls and all(kw["compressed"] for kw in calls)
+    assert eng.graph.layout is None and calls and all(kw["compressed"] for kw in calls)
     monkeypatch.setattr(t_antitopo, "PACKED_BUDGET_BYTES", need)
     gather = _port_engine(path, use_compression=True)  # the CPU default route
     np.testing.assert_array_equal(ids, gather.query_k_batch(q, K))
     eng.query_k_batch(q[:8], K)
-    assert eng.graph.packed.dtype == torch.int8  # within the budget the layout is built
+    assert type(eng.graph.layout) is CodeBlocks  # within the budget the layout is built

@@ -20,8 +20,8 @@ from expann_tpu.ops.pallas_beam import build_packed as j_build_packed
 from expann_tpu.parallel import sharded as js
 from expann_tpu_torch.models.antitopo import AntitopoConfig, AntitopoEngine
 from expann_tpu_torch.models.build import BuildConfig, build_index
+from expann_tpu_torch.models.layout import Blocks
 from expann_tpu_torch.models.search import fused_query_batch, query_batch
-from expann_tpu_torch.ops.packed import build_packed
 from expann_tpu_torch.ops.topk import flat_topk_plain
 from expann_tpu_torch.parallel import sharded as ts
 from expann_tpu_torch.tools.dryrun_multichip import dryrun_multichip
@@ -277,7 +277,7 @@ def test_replicated_fused_query_dp():
     j_ans = js.replicated_fused_query_dp(jg, q, k=10, ef=40, mesh=js.make_mesh(8), qt=8, expand=2, cand=16)
     assert j_ans.shape == (48, 10) and _recall(j_ans, gt) >= 0.9
     g = build_index(x, BuildConfig(M=8, ef_construction=60, prune_cand=60), "cpu")
-    g.packed, g.packed_norms, g.packed_ids = build_packed(g.vectors, g.norms, g.adj_bottom)
+    g.layout = Blocks.build(g)
     ans = ts.replicated_fused_query_dp(g, q, k=10, ef=40, mesh=MESH, qt=8, expand=2, cand=16)
     assert ans.shape == (48, 10) and _recall(ans, gt) >= 0.9
     whole = fused_query_batch(g, torch.from_numpy(np.pad(q, ((0, 0), (0, 96)))), 40, 10, expand=2, cand=16)[0]
