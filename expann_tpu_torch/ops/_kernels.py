@@ -44,7 +44,7 @@ launches: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "expann_flat_topk_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "expann_flat_topk_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "expann_flat_topk_fixed_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "expann_flat_topk_s8": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "expann_flat_topk_fixed_s8": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -52,6 +52,9 @@ _SIGNATURES = {
     "expann_fused_search_s8": [_P] * 10 + [_I] * 10 + [_P],
     "expann_fused_search_rows_bf16": [_P] * 10 + [_I] * 11 + [_P],
     "expann_flat_topk_smem_bytes": [_I, _I],
+    "expann_flat_topk_bf16_smem_bytes": [_I, _I],
+    "expann_flat_topk_workspace_bytes": [_I] * 4,
+    "expann_flat_topk_plan": [_I] * 4 + [_P],
     "expann_flat_topk_fixed_smem_bytes": [_I, _I],
     "expann_fused_search_smem_bytes": [_I] * 6,
     "expann_fused_search_ring": [_I] * 7 + [_P] * 3,

@@ -9,14 +9,17 @@ to bf16; an int8 corpus (centered codes from ``quantize_corpus_i8``) needs
 int8 queries (``quantize_query_i8``), as the JAX launcher asserts, and its
 distances are exact integers (every partial sum stays below 2^24).  On a
 CUDA tensor it launches a hand-written kernel of ``csrc/flat_topk.cu``,
-each in a bf16 and an s8 version, all four on one tensor-core distance
-tile: the count-then-insert kernel (``mode="count"``, the default: a ballot
-admits only the candidates below a query's k-th) or the fixed-pass kernel
-(``mode="fixed"``, the counterpart of the TPU kernel's k passes per tile: a
-compare-exchange network that sorts each tile's 64 candidates and merges
-them into the list, the same stages whatever the data).  Both modes
-compute the same distances and return the same ids.  On a CPU tensor it
-runs ``flat_topk_plain``, the plain PyTorch version of all four.
+each in a bf16 and an s8 version: the count kernel (``mode="count"``, the
+default: only the candidates below a query's k-th are merged into its
+list; on bf16 K2, a wgmma scan with the threshold filter in registers and
+the corpus split across the card at small batches, on s8 K2-s8) or the
+fixed-pass kernel (``mode="fixed"``, the counterpart of the TPU kernel's k
+passes per tile: a compare-exchange network that sorts each tile's 64
+candidates and merges them into the list, the same stages whatever the
+data).  K2-s8, K3 and K3-s8 share one tensor-core tile: on s8 both modes
+return identical lists, on bf16 the same lists but where two candidates
+tie within the f32 sums' rounding.  On a CPU tensor it runs
+``flat_topk_plain``, the plain PyTorch version of all four.
 
 The selection is exact: the TPU kernel's 128-lane pooling and packed keys
 are not reproduced, so both versions agree with the exact oracle
@@ -28,6 +31,7 @@ distances.  Slots beyond the corpus size (k > n) hold id -1 and distance
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -133,14 +137,44 @@ def _launch(name: str, q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.
     if B == 0:
         return ids, d
     name = f"{name}_s8" if s8 else name
+    lib = _kernels.library()
     with torch.cuda.device(device):  # the launcher sets its shared memory on the current device
-        code = getattr(_kernels.library(), f"expann_{name}" if s8 else f"expann_{name}_bf16")(
-            q.data_ptr(), x.data_ptr(), n, B, D, k, ids.data_ptr(), d.data_ptr(),
-            _kernels.stream_ptr(device),
-        )
+        if name == "flat_topk":  # K2: a workspace and the pass counter besides
+            ws = torch.empty(lib.expann_flat_topk_workspace_bytes(n, B, D, k), dtype=torch.uint8, device=device)
+            code = lib.expann_flat_topk_bf16(
+                q.data_ptr(), x.data_ptr(), n, B, D, k, ids.data_ptr(), d.data_ptr(), ws.data_ptr(),
+                pass_counter(device).data_ptr(), _kernels.stream_ptr(device),
+            )
+        else:
+            code = getattr(lib, f"expann_{name}" if s8 else f"expann_{name}_bf16")(
+                q.data_ptr(), x.data_ptr(), n, B, D, k, ids.data_ptr(), d.data_ptr(), _kernels.stream_ptr(device),
+            )
     _kernels.check(code, name)
     _kernels.launches[name] += 1
     return ids, d
+
+
+_pass_counters: dict = {}
+
+
+def pass_counter(device) -> torch.Tensor:
+    """The int64 on ``device`` to which every K2 launch adds the candidates
+    its threshold filter passed (read outside any timed path: ``int()`` of
+    it synchronises)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _pass_counters:
+        _pass_counters[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _pass_counters[device]
+
+
+def flat_topk_plan(n: int, B: int, D: int, k: int) -> dict:
+    """K2's launch shape for a call on the current CUDA device, as its
+    launcher chooses it from (n, B, D, k)."""
+    out = (ctypes.c_int * 7)()
+    _kernels.library().expann_flat_topk_plan(n, B, D, k, ctypes.addressof(out))
+    return dict(zip(("warpgroups", "resident", "stages", "groups", "split", "tiles", "smem"), out))
 
 
 def flat_topk_cuda(q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -151,8 +185,8 @@ def flat_topk_cuda(q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tens
 
 def flat_topk_fixed_cuda(q: torch.Tensor, x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the fixed-pass kernel (K3, or K3-s8 on an int8 corpus;
-    ``csrc/flat_topk.cu``: K2's tile, a compare-exchange network) on CUDA
-    tensors."""
+    ``csrc/flat_topk.cu``: K2-s8's tile, a compare-exchange network) on
+    CUDA tensors."""
     return _launch("flat_topk_fixed", q, x, k)
 
 

@@ -30,7 +30,8 @@ from expann_tpu_torch.ops.fused import (fused_search, fused_search_cuda, fused_s
                                         fused_search_rows_cuda, fused_search_rows_plain, ring_for, topt_for)
 from expann_tpu_torch.ops.packed import (build_packed, build_packed_i8, build_rows, pack_blocks, packed_score,
                                          packed_score_plain, rows_bytes)
-from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain
+from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain, flat_topk_plan
+from expann_tpu_torch.ops.topk import pass_counter as flat_pass_counter
 from expann_tpu_torch.parallel import distbuild
 from expann_tpu_torch.ops.distance import squared_norms
 from expann_tpu_torch.ops.entry import S_MAX, entry_select, entry_select_cuda, entry_select_plain
@@ -255,15 +256,108 @@ def test_flat_topk_corpus_below_one_tile(dev, n, k, mode, s8):
     "s8,n,B,k,D", [(False, *shape) for shape in FLAT_BF16_SHAPES] + [(True, *shape) for shape in FLAT_S8_SHAPES]
 )
 def test_flat_topk_fixed_identical_to_count(dev, s8, n, B, k, D):
-    """K3 and K2 (K3-s8 and K2-s8) share one distance tile, so they compute
-    the same distances bit for bit and, ordering by (d, id), return the very
-    same ids and distances."""
+    """K3-s8 and K2-s8 share one distance tile, so they compute the same
+    distances bit for bit and, ordering by (d, id), return the very same ids
+    and distances.  On bf16, K2's wgmma tile sums in another order than K3's
+    mma.sync tile: each is held to the plain version, and their ids are equal
+    but where two candidates tie within that tolerance."""
     q, x = (_flat_s8_inputs if s8 else _flat_bf16_inputs)(dev, n, B, D, seed=n + k + D + 1)
     ids_c, d_c = _flat_launch(q, x, k, "count")
     ids_f, d_f = _flat_launch(q, x, k, "fixed")
     torch.cuda.synchronize()
-    assert torch.equal(d_f, d_c), float((d_f - d_c).abs().nan_to_num().max())
-    assert torch.equal(ids_f, ids_c), int((ids_f != ids_c).sum())
+    if s8:
+        assert torch.equal(d_f, d_c), float((d_f - d_c).abs().nan_to_num().max())
+        assert torch.equal(ids_f, ids_c), int((ids_f != ids_c).sum())
+        return
+    _assert_bf16_matches_plain(q, x, k, ids_c, d_c)
+    _assert_bf16_matches_plain(q, x, k, ids_f, d_f)
+    kk = min(k, n)
+    diff = ids_c[:, :kk] != ids_f[:, :kk]
+    if bool(diff.any()):  # a tie: the two distances at the slot agree within the plain tolerance
+        torch.testing.assert_close(d_c[:, :kk][diff], d_f[:, :kk][diff], rtol=1e-5, atol=1e-3)
+
+
+def _flat_passes(q, x, k):
+    """K2's ids, distances and the candidates its filter passed in the call."""
+    counter = flat_pass_counter(x.device)
+    before = int(counter.item())
+    ids, d = _flat_launch(q, x, k, "count")
+    return ids, d, int(counter.item()) - before
+
+
+@pytest.mark.parametrize("n,B,k", [(300_000, 200, 10), (300_000, 512, 128), (300_000, 512, 10), (20_000, 1, 128)])
+def test_flat_topk_splits_the_corpus_at_a_small_batch(dev, n, B, k):
+    """A small batch leaves most SMs without a query group, so K2 splits the
+    corpus across blocks and the last split of each group to finish merges
+    the others' lists: its plan splits, and the lists match the plain
+    version's."""
+    plan = flat_topk_plan(n, B, 128, k)
+    assert plan["split"] > 1, plan
+    q, x = _flat_bf16_inputs(dev, n, B, 128, seed=n + B + k)
+    ids, d = _flat_launch(q, x, k, "count")
+    _assert_bf16_matches_plain(q, x, k, ids, d)
+
+
+def test_flat_topk_d1024_k128(dev):
+    """D=1024 at k=128, the wide builder's scan: the queries stream beside
+    the corpus chunk by chunk (16 chunks a tile), one consumer warpgroup a
+    block, the corpus split.  An f32 sum of 1024 products in another order
+    differs by more ulps than at D <= 512: a self-match, whose distance
+    cancels |q|^2 + |x|^2 ~ 2048 down to ~0, read 0.0039 against the plain
+    version's 0.0015 on the card, so the distances are held to 32 ulps of
+    the largest |q|^2 + |x|^2; ids equal but on ties within it."""
+    n, B, k, D = 5000, 256, 128, 1024
+    plan = flat_topk_plan(n, B, D, k)
+    assert plan["resident"] == 0 and plan["split"] > 1, plan
+    q, x = _flat_bf16_inputs(dev, n, B, D, seed=1024)
+    ids, d = _flat_launch(q, x, k, "count")
+    pids, pd = flat_topk_plain(q, x, k)
+    qb, xb = q.to(torch.bfloat16).float(), x.float()
+    atol = 32 * float(torch.finfo(torch.float32).eps) * float((qb * qb).sum(1).max() + (xb * xb).sum(1).max())
+    torch.testing.assert_close(d, pd, rtol=1e-5, atol=atol)
+    diff = ids != pids
+    assert float(diff.float().mean()) < 0.01
+    if bool(diff.any()):
+        own = ((qb[:, None, :] - xb[ids.long()]) ** 2).sum(-1)
+        torch.testing.assert_close(own[diff], pd[diff], rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("k", [10, 128])
+def test_flat_topk_tied_first_tiles_overflow_the_buffer(dev, k):
+    """The first 1024 corpus rows are one row x0, so on the first tiles every
+    candidate of every query ties and passes the filter (the list is not full
+    yet, or the tie is below its k-th): far more than a query's buffer of 32
+    holds, merged as the buffer fills.  Half the queries lie near x0 and take
+    the tied rows 0 .. k-1 in id order (the plain version's product may round
+    identical columns apart, so their distances alone are held to it); the
+    other half lie near -x0, where no tied row is among the nearest, and
+    match the plain version."""
+    n, B, D = 6000, 130, 128
+    rng = np.random.default_rng(k)
+    xh = rng.standard_normal((n, D)).astype(np.float32)
+    xh[:1024] = xh[0]
+    qh = (xh[0] + 0.05 * rng.standard_normal((B, D))).astype(np.float32)
+    qh[B // 2 :] = -xh[0] + rng.standard_normal((B - B // 2, D))
+    q, x = torch.from_numpy(qh).to(dev), torch.from_numpy(xh).to(dev, torch.bfloat16)
+    ids, d, passes = _flat_passes(q, x, k)
+    assert passes >= B * k
+    near, far = slice(0, B // 2), slice(B // 2, B)
+    assert torch.equal(ids[near], torch.arange(k, dtype=torch.int32, device=dev).expand(B // 2, k))
+    torch.testing.assert_close(d[near], flat_topk_plain(q[near], x, k)[1], rtol=1e-5, atol=1e-3)
+    _assert_bf16_matches_plain(q[far], x, k, ids[far], d[far])
+
+
+@pytest.mark.parametrize("n,B,k", [(5000, 300, 10), (300_000, 200, 10), (777, 70, 128), (60, 5, 100)])
+def test_flat_topk_pass_counter(dev, n, B, k):
+    """The filter's pass counter: at least every query's first min(k, n)
+    candidates pass (its list is not yet full), at most every candidate
+    once, and two runs on the same inputs count the same."""
+    q, x = _flat_bf16_inputs(dev, n, B, 128, seed=n + k)
+    ids, d, first = _flat_passes(q, x, k)
+    ids2, d2, second = _flat_passes(q, x, k)
+    assert B * min(k, n) <= first <= B * n, (first, B * min(k, n), B * n)
+    assert first == second
+    assert torch.equal(ids, ids2) and torch.equal(d, d2)
 
 
 @pytest.mark.parametrize("n,C,n_seg", [(5000, 128, 2), (5000, 300, 3), (4150, 300, 3), (3000, 128, 2)])
