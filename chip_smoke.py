@@ -57,7 +57,10 @@ Phases, one line each, stamped with the host seconds since the script started:
                    integer-valued rows of 1024 dims, 96 neighbours, 8192
                    queries at ef=80: ids, distances, rows and iterations
                    identical, 7 launches counted) and timed against the
-                   rows it read at 3.35 TB/s; the entry selection K5
+                   rows it read at 3.35 TB/s; K1-rows-s8 (`fused_rows_s8`)
+                   likewise over s8 code rows on the same graph whose
+                   |x|^2 + |q|^2 pass 2^24 (exact integer distances); the
+                   entry selection K5
                    (`entry_select`) held to its plain version at the
                    million-row entry chunk (8192 queries x 20,864 members,
                    s8-code products, 8 seeds: distances and ids identical,
@@ -306,8 +309,9 @@ def bound(nbytes: float, ops: float, dtype: str = "bf16") -> tuple:
 
 KERNEL_NAMES = (
     "flat_topk_fixed_kernel", "flat_topk_fixed_s8_kernel", "flat_topk_kernel", "flat_topk_s8_kernel",
-    "flat_norms_kernel", "fused_search_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel", "packed_score_kernel",
-    "probe_fused_kernel", "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel", "entry_select_kernel",
+    "flat_norms_kernel", "fused_search_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel",
+    "fused_search_rows_s8_kernel", "packed_score_kernel", "probe_fused_kernel", "block_gather_kernel",
+    "step_overhead_kernel", "probe_lanes_kernel", "entry_select_kernel",
 )
 # P2's comparison: steps, odd, at least 4 rings of NBUF=8 on each block of
 # the grid (at most 8 blocks of 256 threads per SM, 132 SMs)
@@ -518,8 +522,9 @@ def hold_fused_rows(torch, dev, card: str, n: int = 1 << 20, B: int = 8192) -> d
     cand 8.  Ids, distances, row counts and iterations identical, the
     launches counted; the kernel timed against its bound: the rows it read
     with their norm and id (2 D + 8 B each), queries and beams, at 3.35
-    TB/s.  Returns the largest distance difference, the launches and the
-    times."""
+    TB/s.  Then K1-rows-s8 the same way over s8 code rows on the same graph
+    (``_hold_code_rows``).  Returns the largest distance difference, the
+    launches and the times, and K1-rows-s8's under ``s8``."""
     from expann_tpu_torch.ops import _kernels
     from expann_tpu_torch.ops.fused import fused_search_rows, fused_search_rows_plain, ring_for, topt_for
     from expann_tpu_torch.ops.packed import build_rows, packed_widths
@@ -543,7 +548,7 @@ def hold_fused_rows(torch, dev, card: str, n: int = 1 << 20, B: int = 8192) -> d
     bi0 = torch.full((B, EF), n, dtype=torch.int32, device=dev)
     bi0[:, :4] = seeds
     bd0[:, :4] = ((q[:, None, :] - vecs[seeds.long()]) ** 2).sum(-1)
-    del vecs, norms, adj, start, stride
+    del vecs, norms, start, stride
     rs = packed_widths(R)[0]
     topt, max_iters = topt_for(cand, E, rs), 8 * ef + 16
 
@@ -575,6 +580,75 @@ def hold_fused_rows(torch, dev, card: str, n: int = 1 << 20, B: int = 8192) -> d
     check(int(got[3].min()) >= 2, "fused_rows: a query stopped before its second iteration")
     del rows, rn, ri, q, bd0, bi0, got, ref
     torch.cuda.empty_cache()
+    s8 = _hold_code_rows(torch, dev, card, adj, gen, B, ef, EF, E, cand)
+    del adj
+    torch.cuda.empty_cache()
+    return dict(err=err, launches=launched, s8=s8,
+                times=dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=kb[0], bound_by=kb[1]))
+
+
+def _hold_code_rows(torch, dev, card: str, adj, gen, B: int, ef: int, EF: int, E: int, cand: int) -> dict:
+    """K1-rows-s8 through ``fused_search_rows`` over s8 code rows on
+    ``adj``'s graph against its plain version: codes that share a pattern
+    of +-120 plus noise in [-7, 7] (|x|^2 + |q|^2 ~29.5M, past 2^24, where
+    f32 would round; distances ~40,000 that tie or differ by 1), queries of
+    the same kind seeded with 4 random nodes.  Ids, distances, row counts
+    and iterations identical, the launches counted; timed against the rows
+    it read with their norm and id (D + 8 B each), queries and beams, at
+    3.35 TB/s."""
+    from expann_tpu_torch.ops import _kernels
+    from expann_tpu_torch.ops.fused import fused_search_rows, fused_search_rows_plain, ring_for, topt_for
+    from expann_tpu_torch.ops.packed import neighbour_rows, packed_widths
+    from expann_tpu_torch.utils.profiling import event_ms
+
+    n, d = adj.shape[0] - 1, 1024
+    base = 120 * (2 * torch.randint(0, 2, (d,), generator=gen, device=dev) - 1)
+    codes = torch.zeros((n + 1, d), dtype=torch.int8, device=dev)
+    for s in range(0, n, 1 << 17):
+        e = min(n, s + (1 << 17))
+        codes[s:e] = torch.clamp(base + torch.randint(-7, 8, (e - s, d), generator=gen, device=dev), -127,
+                                 127).to(torch.int8)
+    cn = torch.cat([(codes[s : s + (1 << 17)].float() ** 2).sum(1) for s in range(0, n + 1, 1 << 17)])
+    cn[n] = float("inf")
+    rn, ri = neighbour_rows(cn, adj, 32)
+    q = torch.clamp(base + torch.randint(-7, 8, (B, d), generator=gen, device=dev), -127, 127).float()
+    seeds = torch.randint(0, n, (B, 4), generator=gen, device=dev, dtype=torch.int32)
+    bd0 = torch.full((B, EF), float("inf"), device=dev)
+    bi0 = torch.full((B, EF), n, dtype=torch.int32, device=dev)
+    bi0[:, :4] = seeds
+    bd0[:, :4] = ((q[:, None, :] - codes[seeds.long()].float()) ** 2).sum(-1)
+    past = float(cn[:n].min() + (q * q).sum(1).min()) > 2**24
+    rs = packed_widths(adj.shape[1], 32)[0]
+    topt, max_iters = topt_for(cand, E, rs), 8 * ef + 16
+
+    def call():
+        return fused_search_rows(codes, rn, ri, rs, q, bd0, bi0, ef=ef, expand=E, cand=cand)
+
+    before = _kernels.launches["fused_search_rows_s8"]
+    got = call()
+    ref = []
+    plain_ms = event_ms(lambda: ref.append(fused_search_rows_plain(codes, rn, ri, rs, q, bd0, bi0, ef, E, topt,
+                                                                    max_iters)), reps=1, warmup=0)
+    torch.cuda.synchronize()
+    diff = {name: int((a != b).sum()) for name, a, b in zip(("ids", "dist", "ncomp", "iters"), got, ref[-1])}
+    live = torch.isfinite(got[1]) & torch.isfinite(ref[-1][1])
+    err = float((got[1] - ref[-1][1])[live].abs().max())
+    ms = event_ms(call, reps=5)
+    launched = _kernels.launches["fused_search_rows_s8"] - before
+    gathered = int(got[2].sum())
+    kb = bound(gathered * (d + 8) + B * d * 4 + 2 * B * EF * 8 + 2 * B * 4, 2.0 * gathered * d, "int8")
+    ring = ring_for(3, B, d, rs, ri.shape[1], EF, E)
+    phase("fused_rows_s8", n=n, d=d, rs=rs, B=B, ef=ef, EF=EF, expand=E, topt=topt, differing=diff,
+          max_abs_err=f"{err:.3e}", sums_past_2_24=past, rows_per_query=f"{gathered / B:.1f}",
+          iterations_per_query=f"{float(got[3].float().mean()):.1f}", launches=launched, ms=f"{ms:.3f}",
+          plain_ms=f"{plain_ms:.3f}", bound_ms=f"{kb[0]:.4f}", bound_by=kb[1], share=f"{kb[0] / ms:.4f}",
+          gathered_tb_per_s=f"{gathered * d / (ms * 1e-3) / 1e12:.3f}", ring=f"{ring[0]}x{ring[1]}",
+          ctas_per_sm=ring[2], card=card)
+    check(past, "fused_rows_s8: no |x|^2 + |q|^2 passes 2^24")
+    check(not any(diff.values()), f"fused_rows_s8: K1-rows-s8 differs from its plain version: {diff}")
+    check(launched == 7, f"fused_rows_s8: {launched} launches of K1-rows-s8 counted, 7 made")
+    check(int(got[3].min()) >= 2, "fused_rows_s8: a query stopped before its second iteration")
+    del codes, cn, rn, ri, q, bd0, bi0, got, ref
     return dict(err=err, launches=launched,
                 times=dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=kb[0], bound_by=kb[1]))
 
@@ -2172,6 +2246,7 @@ def main() -> None:
         "flat_topk_fixed_s8_kernel": lib.expann_flat_topk_fixed_smem_bytes(D, 3 * K),
         "fused_search_s8_kernel": lib.expann_fused_search_smem_bytes(1, D, 128, 128, 128, cfg.query_expand),
         "fused_search_rows_kernel": lib.expann_fused_search_smem_bytes(2, D, 128, 128, 128, cfg.query_expand),
+        "fused_search_rows_s8_kernel": lib.expann_fused_search_smem_bytes(3, D, 128, 128, 128, cfg.query_expand),
         "probe_fused_kernel": 0,
         "block_gather_kernel": lib.expann_block_gather_smem_bytes(128, D, 4),
         "step_overhead_kernel": lib.expann_step_overhead_smem_bytes(128),
@@ -2180,7 +2255,8 @@ def main() -> None:
     }
     # resident queries per SM of the traversal kernels at the canonical widths and batch
     ctas = {name: ring_for(kind, cfg.query_block, D, 128, 128, 128, cfg.query_expand)[2]
-            for kind, name in enumerate(("fused_search_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel"))}
+            for kind, name in enumerate(("fused_search_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel",
+                                         "fused_search_rows_s8_kernel"))}
     check(all(v >= 1 for v in ctas.values()), f"a traversal kernel cannot be resident: {ctas}")
     for kname, info in sorted(ptx.items()):
         phase("build", kernel=kname, arch=info["arch"], instances=info["instances"], registers=info["registers"],
@@ -2190,7 +2266,7 @@ def main() -> None:
     phase("build", seconds=f"{build_s:.3f}", source=os.path.join("expann_tpu_torch", "csrc"))
     no_spill = ("flat_topk_kernel", "flat_norms_kernel", "flat_topk_s8_kernel", "flat_topk_fixed_kernel",
                 "flat_topk_fixed_s8_kernel", "packed_score_kernel", "fused_search_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel",
-                "probe_fused_kernel",
+                "fused_search_rows_s8_kernel", "probe_fused_kernel",
                 "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel", "entry_select_kernel")
     check(all(ptx[name]["spill_bytes"] == 0 for name in no_spill),
           f"a kernel that may not spill spills registers: {[(name, ptx[name]) for name in no_spill]}")
@@ -2412,6 +2488,7 @@ def main() -> None:
     del bd0, bi0, fargs
     rows_res = hold_fused_rows(torch, dev, card)
     times["fused_search_rows"] = rows_res["times"]
+    times["fused_search_rows_s8"] = rows_res["s8"]["times"]
     k5_res = hold_entry_select(torch, dev, card)
     times["entry_select"] = k5_res["times"]
 
@@ -2507,6 +2584,8 @@ def main() -> None:
          launches["batched"]["fused_search"] + wave["fused_search"] + sharded["fused_search"],
          max(fused_err, cli_err["fused_search"], wres["err"]["fused_search"], sres["err"]["fused_search"])),
         ("fused_search_rows", "expann_tpu_torch/csrc/fused_search.cu", None, rows_res["launches"], rows_res["err"]),
+        ("fused_search_rows_s8", "expann_tpu_torch/csrc/fused_search.cu", None, rows_res["s8"]["launches"],
+         rows_res["s8"]["err"]),
         ("fused_search_s8", "expann_tpu_torch/csrc/fused_search.cu", "expann_tpu/ops/pallas_fused.py:258",
          quant["fused_search_s8"] + mres["serve"]["fused_search_s8"] + wave["fused_search_s8"],
          max(qres["fused_s8_err"], cli_err["fused_search_s8"], mres["s8_err"], wres["err"]["fused_search_s8"])),

@@ -1,14 +1,16 @@
 // Fused bottom-layer beam search over the packed neighbour layout, bf16
 // blocks (`fused_search_kernel`, K1) or centered s8 code blocks
 // (`fused_search_s8_kernel`, K1-s8), or over the bf16 corpus rows read by
-// neighbour id (`fused_search_rows_kernel`, K1-rows).
+// neighbour id (`fused_search_rows_kernel`, K1-rows), or over the s8 code
+// rows read by id (`fused_search_rows_s8_kernel`, K1-rows-s8).
 //
 // Replaces expann_tpu/ops/pallas_fused.py:_fused_kernel (launcher
 // `fused_search` :665, call :717), its "topt" merge only, and its s8 branch
 // (:101, :258-262).  K1-rows replaces no TPU kernel: it serves an index
 // whose packed blocks (N+1 x RS x D) do not fit the card, such as 1M rows
 // of 960 dims (201 GB of bf16 blocks against 2 GB of rows), where the JAX
-// package falls back to its gather beam.
+// package falls back to its gather beam; K1-rows-s8 serves the same index
+// from its s8 codes (98 GB of s8 blocks against 1 GB of code rows).
 //
 // What it computes, per query (one thread block each): starting from the
 // seeded beam of EF (distance, id) entries, of which the first `ef` are
@@ -24,6 +26,15 @@
 //     as the TPU kernel's cast does), |q|^2 is taken from the f32 input and
 //     q.x is an exact s32 sum of s8 products (__dp4a), so every distance is
 //     an exact integer (|code| <= 127, D <= 512 keeps them below 2^24);
+//     K1-rows-s8 takes |q|^2 as the exact s32 sum of the staged codes'
+//     squares and forms the distance in s32 too, so it stays exact where
+//     it passes 2^24 (4 * 127^2 * 1024 at D = 1024) and f32 would round:
+//     the beam holds the integer d as the float whose bits are d's, and
+//     every comparison of two distances is then an unsigned comparison of
+//     their bits (`dless`), which is d's order, and orderable() of such a
+//     float is d | 0x80000000, so the keys' order is d's as well; +inf
+//     stays above every d.  Seeds enter rounded to the nearest integer, and
+//     the beam leaves as f32 of its integers;
 //   * per selected node in order: take its best TOPT by (d, row), skip
 //     those whose id is already in the beam (checked against the beam as
 //     it stands when that node's turn starts), and offer the others in
@@ -79,6 +90,9 @@
 //    against a snapshot of the beam's ids taken at the node's turn and
 //    offered to the live worst at once; the first refused ends the turn.
 //  * Select (warp 0): the live worst and E argmins, the same reductions.
+//  * K1-rows-s8: K1-rows' copy stage (a row is D bytes), K1-s8's scoring,
+//    and the exact distances above (a template flag: the other three
+//    kernels compile as before).
 //  * K1-rows: the copy stage alone differs (a template policy: K1 and K1-s8
 //    compile as before).  Selection first copies the selected nodes' norm
 //    and id rows onto a barrier of their own, and the copying thread waits
@@ -216,6 +230,35 @@ __device__ __forceinline__ void live_worst(const float* bd, int ef, int lane, ui
   warp_argmax(h, l, wh, wl);
 }
 
+// Distances of the exact kind (K1-rows-s8) are integers d >= 0 held as the
+// float with d's bits (below 0x7f800000, +inf's bits, for any real d): they
+// compare as unsigned bits, not as floats, whose order matches only where
+// denormals are not flushed.  The other kinds compare floats.
+template <bool EXACT>
+__device__ __forceinline__ bool dless(float a, float b) {
+  if constexpr (EXACT)
+    return __float_as_uint(a) < __float_as_uint(b);
+  else
+    return a < b;
+}
+
+// K1-rows-s8: a seed's distance, an integer-valued f32 (rounded where the
+// entry scan's sum passed 2^24), as the nearest integer; +inf stays +inf.
+__device__ __forceinline__ float exact_seed(float v) {
+  return v < FINTH ? __int_as_float(__float2int_rn(fmaxf(v, 0.f))) : INFINITY;
+}
+
+// K1-rows-s8: |x|^2 + |q|^2 - 2 q.x in s32 from the integer-valued f32 norm
+// (+inf at a sentinel slot) and the exact s32 terms.
+__device__ __forceinline__ float exact_dist(float xn, int qn, int dot) {
+  return xn < FINTH ? __int_as_float((int)xn + qn - 2 * dot) : INFINITY;
+}
+
+// K1-rows-s8: a beam distance as f32 (the integer rounded to nearest).
+__device__ __forceinline__ float exact_out(float d) {
+  return dless<true>(d, FINTH) ? __int2float_rn(__float_as_int(d)) : INFINITY;
+}
+
 // ---------------------------------------------------------------------------
 // block element types: the query as the scorer holds it, and the partial
 // dot of one 16-byte load against it
@@ -341,6 +384,7 @@ __host__ __device__ inline Plan make_plan(int elt, int qbytes, int D, int RS, in
 // is skipped if its id was in the beam when the turn started (the snapshot
 // `bs`), else offered to the live worst; the first refused ends the turn
 // (later rows are no smaller, the worst is no larger).
+template <bool EXACT>
 __device__ __forceinline__ void merge_node(const float* de, const int* ie, float* bd, int* bi, int* bs,
                                            unsigned char* bx, float wd, int RS, int EF, int ef, int topt,
                                            int sentinel, int lane) {
@@ -348,7 +392,7 @@ __device__ __forceinline__ void merge_node(const float* de, const int* ie, float
 #pragma unroll
   for (int i = 0; i < MAX_RS / 32; ++i) {
     const int j = lane + 32 * i;
-    if (j < RS && de[j] < wd) pm |= 1u << i;
+    if (j < RS && dless<EXACT>(de[j], wd)) pm |= 1u << i;
   }
   if (!__any_sync(FULL, pm != 0u)) return;
   for (int j = lane; j < EF; j += 32) bs[j] = bi[j];
@@ -376,7 +420,7 @@ __device__ __forceinline__ void merge_node(const float* de, const int* ie, float
     if (cid != sentinel)
       for (int j = lane; j < EF; j += 32) hit |= bs[j] == cid;
     if (__any_sync(FULL, hit)) continue;
-    if (!(cd < from_orderable(wh))) break;
+    if (!dless<EXACT>(cd, from_orderable(wh))) break;
     if ((int)(wl & 31) == lane) {
       bd[wl] = cd;
       bi[wl] = cid;
@@ -389,9 +433,10 @@ __device__ __forceinline__ void merge_node(const float* de, const int* ie, float
 
 // ROWS: `src` is the corpus (N+1, D) and a node's neighbours are copied
 // row by row by id (K1-rows); else `src` is the packed blocks (N+1, RS, D).
+// EXACT (s8 only): the distances are exact integers (K1-rows-s8).
 // `stall` (K1-rows): bytes the id rows' barrier expects beyond its copies,
 // 0 in service; more makes that wait time out (the timeout's test).
-template <typename T, bool ROWS>
+template <typename T, bool ROWS, bool EXACT = false>
 __device__ __forceinline__ void fused_body(const T* __restrict__ src,         // (N+1, RS, D) or (N+1, D)
                                            const float* __restrict__ pnorms,  // (N+1, Rt)
                                            const int* __restrict__ pids,      // (N+1, Rt)
@@ -406,6 +451,7 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ src,         //
                                            int topt, int sentinel, int nslot_req, int slot_req, int stall) {
   using B_ = Blk<T>;
   using Acc = typename B_::Acc;
+  static_assert(!EXACT || sizeof(T) == 1, "exact distances need s32 dots");
   constexpr int PER16 = B_::PER16, LPR = B_::LPR, GROUPS = THREADS / LPR, UNROLL = B_::UNROLL;
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan P = make_plan(B_::ELT, B_::QBYTES, D, RS, Rt, EF, E, nslot_req, slot_req);
@@ -439,25 +485,46 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ src,         //
   for (int i = tid; i < D; i += THREADS) B_::stage(qs, i, q[(size_t)b * D + i]);
   // |q|^2 in one fixed order: lane v of QN_LANES sums elements v, v + QN_LANES, ...,
   // each 32 of them fold by a butterfly, then the folds add in order
+  // (EXACT: the s32 sum of the staged codes' squares, in the same lanes)
   for (int vw = warp; vw < QN_LANES / 32; vw += WARPS) {
-    float part = 0.f;
-    for (int i = vw * 32 + lane; i < D; i += QN_LANES) {
-      const float v = q[(size_t)b * D + i];
-      part = fmaf(v, v, part);
-    }
+    if constexpr (EXACT) {
+      int part = 0;
+      for (int i = vw * 32 + lane; i < D; i += QN_LANES) {
+        const int c = (int8_t)(int)q[(size_t)b * D + i];
+        part += c * c;
+      }
 #pragma unroll
-    for (int off = 16; off; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
-    if (lane == 0) red[vw] = part;
+      for (int off = 16; off; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
+      if (lane == 0) red[vw] = __int_as_float(part);
+    } else {
+      float part = 0.f;
+      for (int i = vw * 32 + lane; i < D; i += QN_LANES) {
+        const float v = q[(size_t)b * D + i];
+        part = fmaf(v, v, part);
+      }
+#pragma unroll
+      for (int off = 16; off; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
+      if (lane == 0) red[vw] = part;
+    }
   }
   for (int j = tid; j < EF; j += THREADS) {
-    bd[j] = fmaxf(bd0[(size_t)b * EF + j], 0.f);
+    if constexpr (EXACT)
+      bd[j] = exact_seed(bd0[(size_t)b * EF + j]);
+    else
+      bd[j] = fmaxf(bd0[(size_t)b * EF + j], 0.f);
     bi[j] = bi0[(size_t)b * EF + j];
     bx[j] = 0;
   }
   __syncthreads();
   float qn = 0.f;
+  int qni = 0;  // EXACT
 #pragma unroll
-  for (int w = 0; w < QN_LANES / 32; ++w) qn += red[w];
+  for (int w = 0; w < QN_LANES / 32; ++w) {
+    if constexpr (EXACT)
+      qni += __float_as_int(red[w]);
+    else
+      qn += red[w];
+  }
   // this lane's query fragment for the first 128 columns
   const bool has_frag = gl * PER16 < D;
   const typename B_::Frag qf = has_frag ? B_::frag(qs, gl * PER16) : typename B_::Frag{};
@@ -512,8 +579,8 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ src,         //
         }
         uint32_t mh, ml;
         warp_argmin(h, l, mh, ml);
-        const bool fin = mh != NONE && from_orderable(mh) < FINTH;
-        if (e == 0) stop = !fin || from_orderable(mh) > wd;
+        const bool fin = mh != NONE && dless<EXACT>(from_orderable(mh), FINTH);
+        if (e == 0) stop = !fin || (EXACT ? dless<true>(wd, from_orderable(mh)) : from_orderable(mh) > wd);
         const int s = (fin && !stop) ? bi[ml] : sentinel;
         if (fin && (int)(ml & 31) == lane) bx[ml] = 1;
         if (lane == 0) {
@@ -608,7 +675,12 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ src,         //
 #pragma unroll
           for (int off = LPR / 2; off; off >>= 1) acc[u] += __shfl_xor_sync(FULL, acc[u], off);
           const int r = base + grp + u * GROUPS;
-          if (gl == 0 && r < rows) de[r] = fmaxf((ne[r] + qn) - 2.f * (float)acc[u], 0.f);
+          if (gl == 0 && r < rows) {
+            if constexpr (EXACT)
+              de[r] = exact_dist(ne[r], qni, acc[u]);
+            else
+              de[r] = fmaxf((ne[r] + qn) - 2.f * (float)acc[u], 0.f);
+          }
         }
       }
       __syncthreads();  // the slot is free again, and node e's rows so far are scored
@@ -627,14 +699,17 @@ __device__ __forceinline__ void fused_body(const T* __restrict__ src,         //
       // node e's last chunk: warp 0 merges it while the later chunks' copies
       // are in flight; the other warps go on to the next chunk's wait
       if (warp == 0 && (k + 1) % P.nc == 0)
-        merge_node(sd + e * RS, ai + e * Rt, bd, bi, bs, bx, from_orderable(wsel), RS, EF, ef, topt, sentinel,
-                   lane);
+        merge_node<EXACT>(sd + e * RS, ai + e * Rt, bd, bi, bs, bx, from_orderable(wsel), RS, EF, ef, topt,
+                          sentinel, lane);
     }
   }
   __syncthreads();
   for (int j = tid; j < EF; j += THREADS) {
     const bool live = j < ef;
-    obd[(size_t)b * EF + j] = live ? bd[j] : INFINITY;
+    if constexpr (EXACT)
+      obd[(size_t)b * EF + j] = live ? exact_out(bd[j]) : INFINITY;
+    else
+      obd[(size_t)b * EF + j] = live ? bd[j] : INFINITY;
     obi[(size_t)b * EF + j] = live ? bi[j] : sentinel;
   }
   if (tid == 0) {
@@ -670,9 +745,22 @@ __global__ void __launch_bounds__(THREADS, ROWS_MIN_BLOCKS)
                                   max_iters, E, topt, sentinel, nslot, slot, stall);
 }
 
-// The three kernels: index 0 K1, 1 K1-s8, 2 K1-rows (its element type and
-// copy policy in `Kind`).
-constexpr int KINDS = 3;
+// K1-rows-s8: `rows` is the s8 code corpus (N+1, D), D <= EXACT_MAX_D.
+__global__ void __launch_bounds__(THREADS, ROWS_MIN_BLOCKS)
+    fused_search_rows_s8_kernel(const int8_t* __restrict__ rows, const float* __restrict__ pnorms,
+                                const int* __restrict__ pids, const float* __restrict__ q,
+                                const float* __restrict__ bd0, const int* __restrict__ bi0, int* __restrict__ obi,
+                                float* __restrict__ obd, int* __restrict__ oncomp, int* __restrict__ oiters, int D,
+                                int RS, int Rt, int EF, int ef, int max_iters, int E, int topt, int sentinel,
+                                int nslot, int slot, int stall) {
+  fused_body<int8_t, true, true>(rows, pnorms, pids, q, bd0, bi0, obi, obd, oncomp, oiters, D, RS, Rt, EF, ef,
+                                 max_iters, E, topt, sentinel, nslot, slot, stall);
+}
+
+// The four kernels: index 0 K1, 1 K1-s8, 2 K1-rows, 3 K1-rows-s8 (its
+// element type, copy policy and widest row in `Kind`).
+constexpr int KINDS = 4;
+constexpr int EXACT_MAX_D = 1024;  // K1-rows-s8: the f32 code norms it reads are exact integers
 template <int KI>
 struct Kind;
 template <>
@@ -692,6 +780,13 @@ struct Kind<2> {
   using T = __nv_bfloat16;
   static constexpr bool ROWS = true;
   static auto kernel() { return fused_search_rows_kernel; }
+};
+template <>
+struct Kind<3> {
+  using T = int8_t;
+  static constexpr bool ROWS = true;
+  static constexpr int MAX_D = EXACT_MAX_D;
+  static auto kernel() { return fused_search_rows_s8_kernel; }
 };
 
 template <typename T>
@@ -775,6 +870,8 @@ int launch(const void* src, const void* pnorms, const void* pids, const void* q,
   if (D % (16 / Blk<T>::ELT) != 0 || D < 1 || RS < 1 || RS % 16 != 0 || RS > MAX_RS || RS > Rt || Rt % 4 != 0 ||
       ef < 1 || ef > EF || topt < 1 || topt > RS || E < 1 || stall < 0 || stall % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  if constexpr (KI == 3)
+    if (D > Kind<KI>::MAX_D) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const Occupancy* occ = nullptr;
   const cudaError_t err = prepare<KI>(occ);
@@ -811,10 +908,11 @@ int ring(int B, int D, int RS, int Rt, int EF, int E, int* nslot, int* slot, int
 extern "C" {
 
 // Dynamic shared memory of one block at the default ring (kind: 0 K1,
-// 1 K1-s8, 2 K1-rows, whose plan is K1's).
+// 1 K1-s8, 2 K1-rows, whose plan is K1's, 3 K1-rows-s8, whose plan is
+// K1-s8's).
 int expann_fused_search_smem_bytes(int kind, int D, int RS, int Rt, int EF, int E) {
-  return kind == 1 ? plan_for<int8_t>(D, RS, Rt, EF, E, 1, DEFAULT_SLOT).smem
-                   : plan_for<__nv_bfloat16>(D, RS, Rt, EF, E, 1, DEFAULT_SLOT).smem;
+  return kind == 1 || kind == 3 ? plan_for<int8_t>(D, RS, Rt, EF, E, 1, DEFAULT_SLOT).smem
+                                : plan_for<__nv_bfloat16>(D, RS, Rt, EF, E, 1, DEFAULT_SLOT).smem;
 }
 
 // The ring a launch of B queries of kernel `kind` (as above) takes on the
@@ -825,6 +923,7 @@ int expann_fused_search_ring(int kind, int B, int D, int RS, int Rt, int EF, int
                              int* ctas) {
   if (kind == 1) return ring<1>(B, D, RS, Rt, EF, E, nslot, slot, ctas);
   if (kind == 2) return ring<2>(B, D, RS, Rt, EF, E, nslot, slot, ctas);
+  if (kind == 3) return ring<3>(B, D, RS, Rt, EF, E, nslot, slot, ctas);
   return ring<0>(B, D, RS, Rt, EF, E, nslot, slot, ctas);
 }
 
@@ -861,6 +960,19 @@ int expann_fused_search_rows_bf16(const void* rows, const void* pnorms, const vo
                                   void* oiters, int B, int D, int RS, int Rt, int EF, int ef, int max_iters,
                                   int E, int topt, int sentinel, int stall, void* stream) {
   return launch<2>(rows, pnorms, pids, q, bd0, bi0, obi, obd, oncomp, oiters, B, D, RS, Rt, EF, ef, max_iters, E,
+                   topt, sentinel, stall, stream);
+}
+
+// K1-rows-s8: the s8 code corpus `rows` (N+1, D) and its code-space norm
+// and id rows, a code-space query (integer-valued f32 in [-127, 127]);
+// K1-rows' contract with D % 16 == 0 and D <= 1024 (the norms are exact
+// integers in f32).  Every distance is the exact integer; the beam leaves
+// as f32.
+int expann_fused_search_rows_s8(const void* rows, const void* pnorms, const void* pids, const void* q,
+                                const void* bd0, const void* bi0, void* obi, void* obd, void* oncomp, void* oiters,
+                                int B, int D, int RS, int Rt, int EF, int ef, int max_iters, int E, int topt,
+                                int sentinel, int stall, void* stream) {
+  return launch<3>(rows, pnorms, pids, q, bd0, bi0, obi, obd, oncomp, oiters, B, D, RS, Rt, EF, ef, max_iters, E,
                    topt, sentinel, stall, stream);
 }
 

@@ -28,7 +28,7 @@ per-query scale.  ``num_distcomps`` counts the full-precision distance
 evaluations of queries and ``num_distcomps_compressed`` the quantized ones
 (RECORD_STATS, src/antitopo_engine.h:125-129); both reset on ``build`` and
 on ``set_ef_search``, as do ``num_rows_gathered`` (the corpus rows K1-rows
-read) and ``num_queries`` (the queries answered).  Under a profiler each
+or K1-rows-s8 read) and ``num_queries`` (the queries answered).  Under a profiler each
 call is one ``expann.engine.query`` span holding the host's cast
 (``expann.engine.cast``), the serving layout's build on the first query
 (``expann.engine.layout``), each chunk's upload (``expann.engine.upload``),
@@ -65,12 +65,13 @@ from expann_tpu_torch.utils.persist import index_exists, load_index, save_index
 from expann_tpu_torch.utils.profiling import annotate
 
 # Device bytes the serving layout may take (models/layout.choose: blocks,
-# else bf16 rows, else none).  The JAX engine allows 10 GiB of a
+# else the rows of their precision, else none).  The JAX engine allows 10 GiB of a
 # 16 GB TPU (EXPANN_PACKED_BUDGET_GB, antitopo.py:362-381); the same share
 # of the H100's 80 GB is 50 GiB, which leaves ~26 GB for the corpus, the
 # norm and id rows and the query workspace.  Canonical 56k: 0.92 GB (s8) /
 # 1.84 GB (bf16); 1M rows at M0=120: 16.4 GB / 32.8 GB; 1M rows of 1024
-# padded dims at M0=96: 100 GB / 201 GB of blocks, 2.05 GB of rows.
+# padded dims at M0=96: 100 GB / 201 GB of blocks, 1.02 GB / 2.05 GB of
+# rows.
 PACKED_BUDGET_BYTES = 50 * 2**30
 PACKED_DTYPES = ("bf16", "i8")
 QUERY_WIRES = ("bf16", "i8")
@@ -327,7 +328,7 @@ class AntitopoEngine(Engine):
             return max(int(self.cfg.ef_search), k)
         return max(k * self.cfg.ef_search_mult, k)
 
-    def _layout(self) -> Optional[layouts.Blocks | layouts.Rows]:
+    def _layout(self) -> Optional[layouts.Blocks | layouts.Rows]:  # CodeBlocks, CodeRows: subclasses
         """The serving layout queries use, built on first use
         (antitopo.py:338-433; s8 blocks with ``use_compression``), or None
         where the packed route is off or ``layouts.choose`` builds none

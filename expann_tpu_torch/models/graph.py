@@ -52,7 +52,8 @@ class GraphIndex:
     # models/search.entry_members), sentinel-padded to a multiple of 128
     entry_members: Optional[torch.Tensor] = None  # (n_l_pad,) int32
     entry_members_n: int = 0  # real (unpadded) member count
-    # the serving layout (models/layout.py: Blocks, CodeBlocks or Rows),
+    # the serving layout (models/layout.py: Blocks, CodeBlocks, Rows or
+    # CodeRows),
     # built on the first query, never persisted; None drops it
     layout: Optional[object] = None
 
@@ -71,7 +72,7 @@ class GraphIndex:
 
     @property
     def packed_rows(self) -> Optional[torch.Tensor]:
-        """The rows layout's bf16 corpus, or None."""
+        """The rows layout's corpus (bf16 rows or s8 code rows), or None."""
         return getattr(self.layout, "rows", None)
 
 

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "expann_fused_search_bf16": [_P] * 10 + [_I] * 10 + [_P],
     "expann_fused_search_s8": [_P] * 10 + [_I] * 10 + [_P],
     "expann_fused_search_rows_bf16": [_P] * 10 + [_I] * 11 + [_P],
+    "expann_fused_search_rows_s8": [_P] * 10 + [_I] * 11 + [_P],
     "expann_flat_topk_smem_bytes": [_I, _I],
     "expann_flat_topk_bf16_smem_bytes": [_I, _I],
     "expann_flat_topk_workspace_bytes": [_I] * 4,

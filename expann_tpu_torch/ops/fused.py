@@ -10,7 +10,10 @@ tensors.  ``fused_search_rows`` (``fused_search_rows_kernel``, K1-rows, and
 rows, each neighbour's row read by its id from the layout's id rows
 (``ops/packed.build_rows``), for an index whose packed blocks do not fit
 the card: over the same graph it returns the same beams as K1, and counts
-the non-sentinel rows it scores instead of RS a node.
+the non-sentinel rows it scores instead of RS a node.  Over the s8 code
+corpus (``ops/packed.build_code_rows``) the same call runs K1-rows-s8
+(``fused_search_rows_s8_kernel``): K1-s8's scoring with every distance an
+exact integer at any width up to ``EXACT_MAX_D`` (see below).
 
 Semantics, per query: the beam holds EF (distance, id) entries, the first
 ``ef`` of them live.  Each iteration selects the ``expand`` best unexpanded
@@ -21,7 +24,13 @@ selected node's packed block is scored as
 ``(|x|^2 + |q|^2) - 2 bf16(q).x`` (f32 sums, clamped at 0); on int8
 blocks the query is in code space (integer-valued f32, ``build_packed_i8``'s
 transform), ``q.x`` is taken on its int8 cast and every distance is an
-exact integer, so kernel and plain version agree bit for bit; per node in
+exact integer below 2^24 (D <= 512), so kernel and plain version agree bit
+for bit.  Over s8 code rows (K1-rows-s8) ``|q|^2`` is the exact sum of the
+query codes' squares and ``|x|^2 + |q|^2 - 2 q.x`` is formed in integers, not
+f32 (at D = 1024 it reaches 4 * 127^2 * 1024 > 2^24, where f32 rounds), so
+the lists are ranked by exact distances; seeds enter rounded to the
+nearest integer, and the distances returned are those integers rounded to
+f32.  Per node in
 selection order its best ``TOPT = ceil(cand / expand)`` by (d, row) are
 offered in ascending order, skipping ids already in the beam (checked
 against the beam as it stands when that node's turn starts), each
@@ -48,6 +57,7 @@ from expann_tpu_torch.ops import _kernels
 FINTH = 1.0e38  # "finite": real distances are far below
 INF = float("inf")
 MAX_RS = 256  # rows per packed block the kernel supports
+EXACT_MAX_D = 1024  # K1-rows-s8: the f32 code norms it reads are exact integers (127^2 D < 2^24)
 
 
 def topt_for(cand: int, expand: int, rs: int) -> int:
@@ -57,7 +67,8 @@ def topt_for(cand: int, expand: int, rs: int) -> int:
 
 
 def ring_for(kind: int, B: int, D: int, RS: int, Rt: int, EF: int, expand: int) -> Tuple[int, int, int]:
-    """The shared-memory ring of kernel ``kind`` (0 K1, 1 K1-s8, 2 K1-rows)
+    """The shared-memory ring of kernel ``kind`` (0 K1, 1 K1-s8, 2 K1-rows,
+    3 K1-rows-s8)
     for a launch of B queries on the current CUDA device: ``(slots, bytes a
     slot, resident queries an SM)``.  A batch that fits the card's resident slots
     with a deeper ring gets it (the iteration's blocks all in flight at B <=
@@ -111,13 +122,14 @@ def fused_search_rows_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1-rows: ``fused_search_plain`` with each
     selected node's first ``rs`` neighbours gathered from ``rows`` by their
-    ids, and ``ncomp`` counting the non-sentinel ones."""
+    ids, and ``ncomp`` counting the non-sentinel ones.  On int8 code rows
+    (K1-rows-s8) every distance is the exact integer."""
     sentinel = rows.shape[0] - 1
     ids = packed_ids[:, :rs]
     return _traverse_plain(
         lambda s: rows[ids[s].long()], lambda sel: (ids[sel.long()] != sentinel).sum(dim=(1, 2), dtype=torch.int32),
         rows.dtype, rs, sentinel, packed_norms, packed_ids, q, beam_d0, beam_ids0, ef, expand, topt, max_iters,
-        expanded,
+        expanded, exact=rows.dtype == torch.int8,
     )
 
 
@@ -137,20 +149,34 @@ def _traverse_plain(
     topt: int,
     max_iters: int,
     expanded: Optional[torch.Tensor],
+    exact: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The traversal of both plain versions: ``blocks(sel)`` gives the
+    """The traversal of the plain versions: ``blocks(sel)`` gives the
     ``(B, E, RS, D)`` neighbour rows of the selected nodes and
-    ``counts(sel)`` the ``(B,)`` distance computations they cost."""
+    ``counts(sel)`` the ``(B,)`` distance computations they cost.
+
+    ``exact`` (int8 rows): the beam holds exact integer distances in f64,
+    which holds every one of them (below 2^31): ``|q|^2`` sums the query
+    codes' squares in int64, the seeds are rounded to integers, and each
+    distance is ``|x|^2 + |q|^2 - 2 q.x`` of the integer norms and the dot,
+    whose f32 sums are exact (every partial sum is below ``127^2 D <= 2^24``
+    at D <= ``EXACT_MAX_D``)."""
     B, EF = beam_d0.shape
     dev = q.device
     E = max(1, expand)
     q = q.float()
-    qn = torch.sum(q * q, dim=1)
     qc = q.to(dtype).float()
+    if exact:
+        if q.shape[1] > EXACT_MAX_D:
+            raise ValueError(f"exact code-space distances take D <= {EXACT_MAX_D}, not {q.shape[1]}")
+        qn = torch.sum(qc.long() ** 2, dim=1).double()
+        bd = torch.round(torch.clamp_min(beam_d0.double(), 0.0))
+    else:
+        qn = torch.sum(q * q, dim=1)
+        bd = torch.clamp_min(beam_d0.float(), 0.0)
     lane = torch.arange(EF, device=dev)
     live = lane < ef
     rows = torch.arange(B, device=dev)
-    bd = torch.clamp_min(beam_d0.float(), 0.0)
     bi = beam_ids0.to(torch.int32).clone()
     bx = torch.zeros((B, EF), dtype=torch.bool, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -189,7 +215,10 @@ def _traverse_plain(
 
         s = sel.long()
         dots = torch.einsum("bd,berd->ber", qc, blocks(s).float())
-        d = torch.clamp_min((packed_norms[s, :RS] + qn[:, None, None]) - 2.0 * dots, 0.0)
+        if exact:
+            d = (packed_norms[s, :RS].double() + qn[:, None, None]) - 2.0 * dots.double()
+        else:
+            d = torch.clamp_min((packed_norms[s, :RS] + qn[:, None, None]) - 2.0 * dots, 0.0)
         ids = packed_ids[s, :RS]
         for e in range(E):
             order = torch.sort(d[:, e], dim=1, stable=True).indices[:, :topt]
@@ -203,7 +232,7 @@ def _traverse_plain(
                 bd[r, w] = cd[repl, t]
                 bi[r, w] = ci[repl, t]
                 bx[r, w] = False
-    out_d = torch.where(live, bd, INF)
+    out_d = torch.where(live, bd, INF).float()
     out_i = torch.where(live, bi, sentinel)
     return out_i, out_d, ncomp, iters
 
@@ -338,21 +367,27 @@ def fused_search_rows_cuda(
     stall: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K1-rows (``csrc/fused_search.cu``) over the bf16 corpus
-    ``rows``, with the ring the launcher chooses from B (``ring_for(2,
-    ...)``).  ``stall`` (bytes, a multiple of 16) tests the copy
-    timeout: the first wait for the id rows then never completes, and the
-    kernel traps after 2 s."""
+    ``rows``, or K1-rows-s8 over int8 code rows (D a multiple of 16, at most
+    ``EXACT_MAX_D``), with the ring the launcher chooses from B
+    (``ring_for(2 or 3, ...)``).  ``stall`` (bytes, a multiple of 16) tests
+    the copy timeout: the first wait for the id rows then never completes,
+    and the kernel traps after 2 s."""
     n1, D = rows.shape
+    if rows.dtype == torch.int8:
+        if D > EXACT_MAX_D:
+            raise ValueError(f"unsupported shape: D={D} above {EXACT_MAX_D} for exact code-space distances")
+        return _launch("expann_fused_search_rows_s8", "fused_search_rows_s8", rows, torch.int8, 16, n1, int(rs), D,
+                       packed_norms, packed_ids, q, beam_d0, beam_ids0, ef, expand, topt, max_iters, int(stall))
     return _launch("expann_fused_search_rows_bf16", "fused_search_rows", rows, torch.bfloat16, 8, n1, int(rs), D,
                    packed_norms, packed_ids, q, beam_d0, beam_ids0, ef, expand, topt, max_iters, int(stall))
 
 
 def fused_search_rows(
-    rows: torch.Tensor,  # (N+1, D) bf16 corpus, zero sentinel row N (f32 accepted on CPU)
+    rows: torch.Tensor,  # (N+1, D) bf16 corpus, zero sentinel row N (f32 accepted on CPU), or int8 codes
     packed_norms: torch.Tensor,  # (N+1, R_tile) f32, +inf at pad slots
     packed_ids: torch.Tensor,  # (N+1, R_tile) int32
     rs: int,  # id slots scored a node: RS of the blocks the layout stands in for
-    q: torch.Tensor,  # (B, D) f32
+    q: torch.Tensor,  # (B, D) f32; code space for int8 rows
     beam_d0: torch.Tensor,  # (B, EF) f32, +inf padding
     beam_ids0: torch.Tensor,  # (B, EF) int32, sentinel padding
     ef: int,
@@ -361,9 +396,10 @@ def fused_search_rows(
     max_iters: int = 0,  # <= 0 means 8 * ef + 16
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``fused_search`` over the corpus rows and the layout's id rows
-    (``ops/packed.build_rows``) instead of packed blocks: the same
-    ``(beam_ids, beam_d, ncomp, iters)``, with ``ncomp`` the non-sentinel
-    rows scored.  K1-rows on CUDA tensors, the plain version on CPU
+    (``ops/packed.build_rows`` or ``build_code_rows``) instead of packed
+    blocks: the same ``(beam_ids, beam_d, ncomp, iters)``, with ``ncomp``
+    the non-sentinel rows scored; over int8 code rows every distance is
+    exact.  K1-rows / K1-rows-s8 on CUDA tensors, the plain version on CPU
     tensors."""
     topt = topt_for(cand, expand, rs)
     if max_iters <= 0:

@@ -22,7 +22,10 @@ Where the blocks do not fit the card (1M rows of 960 dims: 201 GB of bf16
 blocks), ``build_rows`` gives the rows layout instead: the bf16 corpus
 ``(N+1, D)`` once (its row N zeros) with the same norm and id rows; the
 fused traversal then reads each neighbour's row by its id
-(ops/fused.py ``fused_search_rows``).
+(ops/fused.py ``fused_search_rows``).  Where s8 blocks do not fit (1M rows
+of 1024 padded dims: 98 GB), ``build_code_rows`` gives the same over the
+centred s8 code corpus (1 GB), with the s8 blocks' code-space norm and id
+rows.
 
 ``packed_score`` scores the blocks of selected nodes for one traversal
 iteration of the per-iteration beam search (models/search.py
@@ -60,6 +63,11 @@ def packed_bytes(np1: int, r: int, d: int, dtype: str) -> int:
 def rows_bytes(np1: int, d: int) -> int:
     """Device bytes of the rows layout's bf16 corpus of ``np1`` rows."""
     return np1 * d * 2
+
+
+def code_rows_bytes(np1: int, d: int) -> int:
+    """Device bytes of the code rows layout's s8 corpus of ``np1`` rows."""
+    return np1 * d
 
 
 def neighbour_rows(
@@ -120,25 +128,18 @@ def build_packed(
     return pack_blocks(vectors, norms, adj, 16, dtype, chunk)
 
 
-def build_packed_i8(
+def code_corpus(
     vectors: torch.Tensor,  # (N+1, D) f32 corpus with sentinel row
-    adj: torch.Tensor,  # (N+1, R) int32, sentinel N padding
-    chunk: int = 32768,
-):
-    """The packed layout over CENTERED s8 codes: half the bytes per
-    expansion of the bf16 layout, scored exactly in code space (|code| <=
-    127 and D <= 512 keep integer distances below 2^24).  Centering by the
-    corpus mean and one absmax scale is the ``quantize_corpus_i8`` recipe.
-
-    Returns ``(packed, packed_norms, packed_ids, codes, code_norms, center,
-    scale)``: int8 blocks ``(N+1, RS, D)`` with ``RS = roundup(R, 32)``,
-    their CODE-SPACE norms and ids ``(N+1, R_tile)`` (+inf / sentinel at
-    pad slots), the code corpus ``(N+1, D)`` int8 with its norms ``(N+1,)``
-    (+inf at the sentinel) for entry-point scoring, and the f32 query
-    transform ``qc = clip(round((q - center) * scale), -127, 127)``:
-    ``center`` ``(D,)`` and ``scale`` ``()``.  The mean is a device f32
-    mean, as in the JAX package; its last bit may differ there, so tests
-    that need the JAX codes carry them across (utils/persist.py)."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The centred s8 code corpus of both s8 layouts: ``(codes, code_norms,
+    center, scale)``, the codes ``(N+1, D)`` int8 with their norms
+    ``(N+1,)`` (integer-valued f32, exact while ``127^2 D < 2^24``, i.e. up
+    to D = 1024; +inf at the sentinel) and the f32 query transform
+    ``qc = clip(round((q - center) * scale), -127, 127)``: ``center``
+    ``(D,)`` and ``scale`` ``()``.  Centering by the corpus mean and one
+    absmax scale is the ``quantize_corpus_i8`` recipe.  The mean is a
+    device f32 mean, as in the JAX package; its last bit may differ there,
+    so tests that need the JAX codes carry them across (utils/persist.py)."""
     sentinel = vectors.shape[0] - 1
     vf = vectors.float()
     center = vf[:sentinel].mean(dim=0)
@@ -148,8 +149,38 @@ def build_packed_i8(
     cf = codes.float()
     code_norms = torch.sum(cf * cf, dim=1)
     code_norms[sentinel] = float("inf")
+    return codes, code_norms, center, scale
+
+
+def build_packed_i8(
+    vectors: torch.Tensor,  # (N+1, D) f32 corpus with sentinel row
+    adj: torch.Tensor,  # (N+1, R) int32, sentinel N padding
+    chunk: int = 32768,
+):
+    """The packed layout over CENTERED s8 codes (``code_corpus``): half the
+    bytes per expansion of the bf16 layout, scored exactly in code space
+    (|code| <= 127 and D <= 512 keep integer distances below 2^24).
+
+    Returns ``(packed, packed_norms, packed_ids, codes, code_norms, center,
+    scale)``: int8 blocks ``(N+1, RS, D)`` with ``RS = roundup(R, 32)``,
+    their CODE-SPACE norms and ids ``(N+1, R_tile)`` (+inf / sentinel at
+    pad slots), and ``code_corpus``'s codes, norms (for entry-point
+    scoring) and query transform."""
+    codes, code_norms, center, scale = code_corpus(vectors)
     packed, packed_norms, packed_ids = pack_blocks(codes, code_norms, adj, 32, chunk=chunk)
     return packed, packed_norms, packed_ids, codes, code_norms, center, scale
+
+
+def build_code_rows(
+    vectors: torch.Tensor,  # (N+1, D) f32 corpus with sentinel row
+    adj: torch.Tensor,  # (N+1, R) int32, sentinel N padding
+):
+    """The code rows layout: ``(codes, packed_norms, packed_ids, code_norms,
+    center, scale)``, ``code_corpus``'s codes and transform with the s8
+    blocks' code-space norm and id rows (RS aligned to 32), without the
+    blocks: the traversal reads each neighbour's code row by its id."""
+    codes, code_norms, center, scale = code_corpus(vectors)
+    return (codes, *neighbour_rows(code_norms, adj, 32), code_norms, center, scale)
 
 
 def packed_score_plain(

@@ -1,6 +1,7 @@
 """Time the fused traversal (K1 on bf16 blocks, K1-s8 on s8 blocks,
 ``ops/fused.fused_search``; with ``--dtype rows`` K1-rows over the bf16
-rows layout of the same graph, ``ops/fused.fused_search_rows``) on the card.
+rows layout of the same graph, with ``--dtype rows_s8`` K1-rows-s8 over its
+s8 code rows, ``ops/fused.fused_search_rows``) on the card.
 
 The canonical graph (``tools/perf_e2e_graph.canonical_graph``: n=56000,
 d=128, bench.py's build, read from ``--index`` or built there), served as
@@ -23,7 +24,8 @@ call's time (P2's random-gather rate at the same block size,
 ids and the distance and iteration counts let two checkouts' lines be
 compared for identical results (K1-rows' ids, distances and iterations
 equal K1's; its ``ncomp`` counts rows, and its gathered bytes are those
-rows with their ids and norms).  Prints one JSON line per reading, with the
+rows with their ids and norms; K1-rows-s8's equal K1-s8's).  Prints one JSON
+line per reading, with the
 card's name and power limit and the package it timed.
 
     python -m expann_tpu_torch.tools.perf_fused_search [--B 8,512,16384] [--ef 100,120]
@@ -106,7 +108,7 @@ def ring_name(dtype: str, B: int, rs: int, rt: int) -> str:
     tells it (``ops/fused.ring_for``)."""
     if not hasattr(fused, "ring_for"):
         return "default"
-    nslot, slot, _ = fused.ring_for(("bf16", "s8", "rows").index(dtype), B, D, rs, rt, EF, E)
+    nslot, slot, _ = fused.ring_for(("bf16", "s8", "rows", "rows_s8").index(dtype), B, D, rs, rt, EF, E)
     return f"{nslot}x{slot}"
 
 
@@ -114,7 +116,7 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
     ap.add_argument("--B", default="8,512,16384")
     ap.add_argument("--ef", default="100,120")
-    ap.add_argument("--dtype", default="bf16,s8", help="comma-separated: bf16, s8, rows")
+    ap.add_argument("--dtype", default="bf16,s8", help="comma-separated: bf16, s8, rows, rows_s8")
     ap.add_argument("--index", default="", help="graph index file (default: the canonical one)")
     ap.add_argument("--reps", type=int, default=200, help="calls timed at B < 1024 (5 at larger B)")
     ap.add_argument("--seed", type=int, default=0)
@@ -128,7 +130,8 @@ def main(argv=None) -> list:
     card = card_name()
     out = []
     for dtype in args.dtype.split(","):
-        eng = canonical_graph(args.index or IDX, 56000, dev, packed_dtype="i8" if dtype == "s8" else "bf16",
+        s8 = dtype in ("s8", "rows_s8")
+        eng = canonical_graph(args.index or IDX, 56000, dev, packed_dtype="i8" if s8 else "bf16",
                               use_packed=True, use_fused=True, query_expand=E, fused_cand=CAND,
                               entry_seeds=SEEDS)
         L = eng._layout()
@@ -139,6 +142,8 @@ def main(argv=None) -> list:
             from expann_tpu_torch.ops.packed import build_rows
 
             rows = build_rows(g.vectors, g.norms, g.adj_bottom)[0]
+        elif dtype == "rows_s8":  # the code rows: the s8 layout's codes, norm and id rows
+            rows = L.codes
         rng = np.random.default_rng(args.seed)
         for B in (int(v) for v in args.B.split(",")):
             qh = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(dev)
@@ -147,7 +152,7 @@ def main(argv=None) -> list:
             reps = args.reps if B < 1024 else 5
             for ef in (int(v) for v in args.ef.split(",")):
                 def call():
-                    if dtype == "rows":
+                    if dtype in ("rows", "rows_s8"):
                         return fused.fused_search_rows(rows, L.norms, L.ids, rs, qk, bd0, bi0, ef=ef,
                                                        expand=E, cand=CAND)
                     return fused.fused_search(L.packed, L.norms, L.ids, qk, bd0, bi0, ef=ef,
@@ -157,15 +162,16 @@ def main(argv=None) -> list:
                 if not bool(torch.isfinite(dist[:, :ef]).all()) or bool((ids[:, :ef] >= n1 - 1).any()):
                     raise SystemExit(f"{dtype} B={B} ef={ef}: a live lane without a real entry")
                 ms = event_ms(call, reps=reps)
-                if dtype == "rows":  # ncomp counts rows; a row brings its id and norm
+                if dtype in ("rows", "rows_s8"):  # ncomp counts rows; a row brings its id and norm
                     expansions, blocks = None, None
-                    gathered = int(ncomp.sum()) * (D * 2 + 8)
+                    gathered = int(ncomp.sum()) * (D * (1 if s8 else 2) + 8)
                 else:
                     expansions = int(ncomp.sum()) // rs
                     blocks = expanded_blocks(L.packed, L.norms, L.ids, qk, bd0, bi0, ef, E,
                                              fused.topt_for(CAND, E, rs), 8 * ef + 16)
                     gathered = traversal_bytes(expansions, 0, rs, D, rt, 1 if dtype == "s8" else 2, B, EF)[1]
-                kernel = {"s8": "fused_search_s8", "rows": "fused_search_rows"}.get(dtype, "fused_search")
+                kernel = {"s8": "fused_search_s8", "rows": "fused_search_rows",
+                          "rows_s8": "fused_search_rows_s8"}.get(dtype, "fused_search")
                 row = {"kernel": kernel, "dtype": dtype,
                        "B": B, "ef": ef, "EF": EF, "E": E, "cand": CAND, "RS": rs, "R_tile": rt,
                        "n": n1 - 1, "ms": ms, "blocks": blocks,

@@ -16,9 +16,10 @@ import torch
 from expann_tpu_torch.models import antitopo
 from expann_tpu_torch.models import layout as layouts
 from expann_tpu_torch.models.antitopo import PACKED_BUDGET_BYTES, AntitopoConfig, AntitopoEngine
-from expann_tpu_torch.models.layout import Blocks, CodeBlocks, Rows, choose
+from expann_tpu_torch.models.layout import Blocks, CodeBlocks, CodeRows, Rows, choose
 from expann_tpu_torch.ops.fused import fused_search_plain, fused_search_rows, fused_search_rows_plain, topt_for
-from expann_tpu_torch.ops.packed import build_packed, build_rows, packed_bytes, packed_widths, rows_bytes
+from expann_tpu_torch.ops.packed import (build_packed, build_rows, code_rows_bytes, packed_bytes, packed_widths,
+                                         rows_bytes)
 
 K = 10
 
@@ -176,12 +177,12 @@ SHAPES = [(56001, 128, 128, "bf16"), (56001, 128, 128, "i8"), (1000001, 96, 128,
 @pytest.mark.parametrize("np1,r,d,dtype", SHAPES)
 def test_layout_follows_the_budget(np1, r, d, dtype):
     """Under the real budget: blocks exactly where ``packed_bytes`` fits,
-    and otherwise the rows for bf16 (their bytes fit at every shape here)
-    and no layout for s8."""
+    and otherwise the rows of the dtype (their bytes fit at every shape
+    here): bf16 rows, or s8 code rows (D <= 1024 at every shape here)."""
     fits = packed_bytes(np1, r, d, dtype) <= PACKED_BUDGET_BYTES
-    assert rows_bytes(np1, d) <= PACKED_BUDGET_BYTES
+    assert rows_bytes(np1, d) <= PACKED_BUDGET_BYTES and code_rows_bytes(np1, d) <= PACKED_BUDGET_BYTES
     blocks = CodeBlocks if dtype == "i8" else Blocks
-    assert choose(np1, r, d, dtype, PACKED_BUDGET_BYTES) is (blocks if fits else Rows if dtype == "bf16" else None)
+    assert choose(np1, r, d, dtype, PACKED_BUDGET_BYTES) is (blocks if fits else Rows if dtype == "bf16" else CodeRows)
 
 
 def test_gist_shape_takes_rows_and_small_engines_take_blocks(wide):

@@ -21,15 +21,15 @@ import torch
 from expann_tpu_torch.models import search
 from expann_tpu_torch.models.antitopo import AntitopoConfig, AntitopoEngine
 from expann_tpu_torch.models.build import BuildConfig, build_index
-from expann_tpu_torch.models.layout import Blocks, CodeBlocks, Rows
+from expann_tpu_torch.models.layout import Blocks, CodeBlocks, CodeRows, Rows
 from expann_tpu_torch.models.search import beam_search, query_batch
 from expann_tpu_torch.ops import _kernels
 from expann_tpu_torch.models import antitopo
 from expann_tpu_torch.models.search import entry_beam
 from expann_tpu_torch.ops.fused import (fused_search, fused_search_cuda, fused_search_plain, fused_search_rows,
                                         fused_search_rows_cuda, fused_search_rows_plain, ring_for, topt_for)
-from expann_tpu_torch.ops.packed import (build_packed, build_packed_i8, build_rows, pack_blocks, packed_score,
-                                         packed_score_plain, rows_bytes)
+from expann_tpu_torch.ops.packed import (build_packed, build_packed_i8, build_rows, code_rows_bytes, neighbour_rows,
+                                         pack_blocks, packed_score, packed_score_plain, rows_bytes)
 from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain, flat_topk_plan
 from expann_tpu_torch.ops.topk import pass_counter as flat_pass_counter
 from expann_tpu_torch.parallel import distbuild
@@ -54,6 +54,7 @@ def test_kernels_build(dev):
     report = _kernels.build_report()
     for name in ("flat_topk_kernel", "flat_topk_fixed_kernel", "fused_search_kernel", "packed_score_kernel",
                  "flat_topk_s8_kernel", "flat_topk_fixed_s8_kernel", "fused_search_s8_kernel", "fused_search_rows_kernel",
+                 "fused_search_rows_s8_kernel",
                  "probe_fused_kernel", "block_gather_kernel", "step_overhead_kernel", "probe_lanes_kernel",
                  "entry_select_kernel"):
         assert name in report
@@ -740,6 +741,112 @@ def test_engine_serves_the_rows_layout_on_the_card(dev, monkeypatch):
     np.testing.assert_array_equal(got, blocks)
 
 
+def _code_rows_wide(dev, n, R, seed):
+    """s8 code rows at D=1024 that sit near one another: a shared pattern of
+    +-120 plus noise in [-7, 7], so |x|^2 + |q|^2 is ~29.5M, past 2^24,
+    while the distances are ~40,000 and tie or differ by 1 often; a random
+    graph whose every seventh node's last quarter is the sentinel.  The
+    code-space norm and id rows as the code rows layout holds them."""
+    d = 1024
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    base = 120 * (2 * torch.randint(0, 2, (d,), generator=gen, device=dev) - 1)
+    codes = torch.zeros((n + 1, d), dtype=torch.int8, device=dev)
+    codes[:n] = torch.clamp(base + torch.randint(-7, 8, (n, d), generator=gen, device=dev), -127, 127).to(torch.int8)
+    cn = (codes.float() ** 2).sum(1)
+    cn[n] = float("inf")
+    rng = np.random.default_rng(seed)
+    adj = np.stack([rng.choice(n, size=R, replace=False) for _ in range(n)] + [np.full(R, n)]).astype(np.int32)
+    adj[::7, R - R // 4 :] = n
+    rn, ri = neighbour_rows(cn, torch.from_numpy(adj).to(dev), 32)
+    return codes, cn, rn, ri, base, gen
+
+
+@pytest.mark.parametrize("B", [8, 512, 16384])
+def test_fused_search_rows_s8_exact_at_d1024_identical_to_plain(dev, B):
+    """K1-rows-s8 at D=1024 against its plain version where the f32
+    combination of |x|^2 + |q|^2 - 2 q.x would round (the sums pass 2^24,
+    checked) and exact distances tie or differ by 1: beams, distances, row
+    counts and iterations identical, one launch counted, through the rings
+    of B = 8, 512 and 16384."""
+    n, R, EF, ef, E, cand = 20000, 96, 128, 80, 2, 8
+    codes, cn, rn, ri, base, gen = _code_rows_wide(dev, n, R, seed=B)
+    q = torch.clamp(base + torch.randint(-7, 8, (B, 1024), generator=gen, device=dev), -127, 127).float()
+    assert float((cn[:n].min() + (q * q).sum(1).min())) > 2**24
+    seeds = torch.randint(0, n, (B, 4), generator=gen, device=dev, dtype=torch.int32)
+    bd0 = torch.full((B, EF), float("inf"), device=dev)
+    bi0 = torch.full((B, EF), n, dtype=torch.int32, device=dev)
+    bi0[:, :4] = seeds
+    bd0[:, :4] = ((q[:, None, :] - codes[seeds.long()].float()) ** 2).sum(-1)
+    rs = 96
+    topt = topt_for(cand, E, rs)
+    before = _kernels.launches["fused_search_rows_s8"]
+    got = fused_search_rows(codes, rn, ri, rs, q, bd0, bi0, ef, expand=E, cand=cand)
+    assert _kernels.launches["fused_search_rows_s8"] == before + 1
+    ref = fused_search_rows_plain(codes, rn, ri, rs, q, bd0, bi0, ef, E, topt, 8 * ef + 16)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ids", "dist", "ncomp", "iters"), got, ref):
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    assert int(got[3].min()) >= 2
+
+
+def test_fused_search_rows_s8_identical_to_k1_s8_on_canonical(dev, canonical_rows):
+    """K1-rows-s8 against K1-s8 on the canonical index's s8 layouts from the
+    code-space seed beams (8 seeds, EF=128, ef=120, E=2, cand=8; d=128,
+    where both are exact): beam ids, distances and iteration counts
+    identical; K1-rows-s8 counts no more rows than K1-s8's RS a node."""
+    g, _ = canonical_rows
+    blocks, rows = CodeBlocks.build(g), CodeRows.build(g)
+    assert rows.rs == blocks.packed.shape[1] and torch.equal(rows.ids, blocks.ids)
+    rng = np.random.default_rng(12)
+    q = torch.from_numpy(rng.standard_normal((16384, 128)).astype(np.float32)).to(dev)
+    saved = g.layout
+    try:
+        g.layout = blocks
+        bd0, bi0, _ = entry_beam(g, q, 128, 8)
+    finally:
+        g.layout = saved
+    qk = blocks.kernel_query(q)
+    before = _kernels.launches["fused_search_rows_s8"], _kernels.launches["fused_search_s8"]
+    got = fused_search_rows(rows.rows, rows.norms, rows.ids, rows.rs, qk, bd0, bi0, 120, expand=2, cand=8)
+    ref = fused_search(blocks.packed, blocks.norms, blocks.ids, qk, bd0, bi0, 120, expand=2, cand=8)
+    assert (_kernels.launches["fused_search_rows_s8"], _kernels.launches["fused_search_s8"]) == (before[0] + 1,
+                                                                                               before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]), int((got[0] != ref[0]).any(1).sum())
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[3], ref[3])
+    assert bool((got[2] <= ref[2]).all()) and int(got[2].sum()) > 0
+
+
+def test_engine_serves_the_code_rows_on_the_card(dev, monkeypatch):
+    """An s8 engine at 3000 x 960 (padded to 1024) whose budget admits the
+    code rows and not the s8 blocks: the fused route launches K1-rows-s8
+    and no K1-s8, counts its rows and queries, and returns the lists the
+    same engine returns with the traversal run by the plain version."""
+    rng = np.random.default_rng(29)
+    x = rng.standard_normal((3000, 960)).astype(np.float32)
+    q = rng.standard_normal((300, 960)).astype(np.float32)
+    cfg = AntitopoConfig(M=8, ef_construction=40, prune_cand=40, query_expand=2, fused_cand=8, entry_seeds=8,
+                         ef_search=60, packed_dtype="i8")
+    eng = AntitopoEngine(config=cfg, device="cuda")
+    eng.store_many_vectors(x)
+    eng.build()
+    monkeypatch.setattr(antitopo, "PACKED_BUDGET_BYTES", code_rows_bytes(3001, 1024))
+    before = _kernels.launches["fused_search_rows_s8"], _kernels.launches["fused_search_s8"]
+    got = eng.query_k_batch(q, 10)
+    assert type(eng.graph.layout) is CodeRows and eng.graph.packed is None
+    assert (_kernels.launches["fused_search_rows_s8"], _kernels.launches["fused_search_s8"]) == (before[0] + 1,
+                                                                                               before[1])
+    assert eng.num_queries == 300 and 300 * 16 < eng.num_rows_gathered < eng.num_distcomps
+    from expann_tpu_torch.models import layout as layouts
+
+    def plain(rows, norms, ids, rs, q, bd0, bi0, ef, expand, cand, max_iters=0):
+        return fused_search_rows_plain(rows, norms, ids, rs, q, bd0, bi0, ef, expand, topt_for(cand, expand, rs),
+                                       8 * ef + 16)
+
+    monkeypatch.setattr(layouts, "fused_search_rows", plain)
+    np.testing.assert_array_equal(eng.query_k_batch(q, 10), got)
+
+
 def _entry_inputs(dev, B, n, ties, seed):
     """K5's operands at (B, n): the raw product G of B queries against n
     members, their norms (the last n // 17 members the sentinel: a zero
@@ -809,10 +916,10 @@ def _plain_entry_select(G, xn, qn, members, S, bd0, bi0):
     bd0[:, :S], bi0[:, :S] = entry_select_plain(G, xn, qn, members, S)
 
 
-@pytest.mark.parametrize("layout", ["bf16", "s8", "rows"])
+@pytest.mark.parametrize("layout", ["bf16", "s8", "rows", "code_rows"])
 def test_fused_query_batch_identical_with_entry_select(dev, canonical_rows, layout, monkeypatch):
     """The fused route on the canonical graph (933 entry members, 8 seeds)
-    over bf16 blocks, s8 blocks and the rows layout: seeds, ids, distances
+    over bf16 blocks, s8 blocks, the rows layout and the s8 code rows: seeds, ids, distances
     and distance computations identical with K5 and with the full stable
     sort it replaces; one K5 launch a call."""
     g, rows = canonical_rows
@@ -820,6 +927,8 @@ def test_fused_query_batch_identical_with_entry_select(dev, canonical_rows, layo
         monkeypatch.setattr(g, "layout", CodeBlocks.build(g))
     elif layout == "rows":
         monkeypatch.setattr(g, "layout", rows)
+    elif layout == "code_rows":
+        monkeypatch.setattr(g, "layout", CodeRows.build(g))
     rng = np.random.default_rng(5)
     q = torch.from_numpy(rng.standard_normal((4096, 128)).astype(np.float32)).to(dev)
     before = _kernels.launches["entry_select"]

@@ -11,8 +11,8 @@ import torch
 
 from expann_tpu_torch.models import antitopo
 from expann_tpu_torch.models.antitopo import AntitopoConfig, AntitopoEngine
-from expann_tpu_torch.models.layout import Blocks, CodeBlocks, Rows
-from expann_tpu_torch.ops.packed import rows_bytes
+from expann_tpu_torch.models.layout import Blocks, CodeBlocks, CodeRows, Rows
+from expann_tpu_torch.ops.packed import code_rows_bytes, rows_bytes
 
 torch.set_num_threads(2)
 
@@ -27,11 +27,13 @@ def small():
 
 
 # (packed_dtype, budget, layout): the real budget admits both block types;
-# a budget of the rows' bytes admits bf16 rows and no s8 layout
-CASES = [("bf16", "real", Blocks), ("i8", "real", CodeBlocks), ("bf16", "rows", Rows), ("i8", "rows", NONE)]
+# a budget of the bf16 rows' bytes admits bf16 rows or s8 code rows; one
+# below the code rows' bytes admits no s8 layout
+CASES = [("bf16", "real", Blocks), ("i8", "real", CodeBlocks), ("bf16", "rows", Rows), ("i8", "below", NONE),
+         ("i8", "rows", CodeRows)]
 
 
-@pytest.mark.parametrize("dtype,budget,kind", CASES, ids=["blocks", "code_blocks", "rows", "none"])
+@pytest.mark.parametrize("dtype,budget,kind", CASES, ids=["blocks", "code_blocks", "rows", "none", "code_rows"])
 def test_engine_holds_the_chosen_layout(small, monkeypatch, dtype, budget, kind):
     """After the first query the graph holds the layout the budget admits;
     ``set_packed_dtype`` clears it at once, and with it the captured beams
@@ -45,12 +47,15 @@ def test_engine_holds_the_chosen_layout(small, monkeypatch, dtype, budget, kind)
     g = eng.graph
     if budget == "rows":
         monkeypatch.setattr(antitopo, "PACKED_BUDGET_BYTES", rows_bytes(g.vectors.shape[0], g.vectors.shape[1]))
+    elif budget == "below":
+        monkeypatch.setattr(antitopo, "PACKED_BUDGET_BYTES", code_rows_bytes(g.vectors.shape[0], g.vectors.shape[1]) - 1)
     assert g.layout is None
     ids = eng.query_k_batch(q, K)
     assert type(g.layout) is kind
     assert ids.shape == (q.shape[0], K) and all(len(set(row.tolist())) == K for row in ids)
-    assert (g.packed is not None) == (kind in (Blocks, CodeBlocks)) and (g.packed_rows is not None) == (kind is Rows)
-    assert (eng.num_rows_gathered > 0) == (kind is Rows)
+    rows = kind in (Rows, CodeRows)
+    assert (g.packed is not None) == (kind in (Blocks, CodeBlocks)) and (g.packed_rows is not None) == rows
+    assert (eng.num_rows_gathered > 0) == rows
     if kind is NONE:
         return
     built = weakref.ref(g.layout)
@@ -64,4 +69,4 @@ def test_engine_holds_the_chosen_layout(small, monkeypatch, dtype, budget, kind)
     gc.collect()
     assert built() is None and (beams is None or beams() is None)
     eng.query_k_batch(q[:4], K)
-    assert type(g.layout) is {Blocks: CodeBlocks, CodeBlocks: Blocks, Rows: NONE}[kind]
+    assert type(g.layout) is {Blocks: CodeBlocks, CodeBlocks: Blocks, Rows: CodeRows, CodeRows: Rows}[kind]

@@ -28,7 +28,7 @@ from expann_tpu_torch.models.layout import Blocks, CodeBlocks
 from expann_tpu_torch.models.search import query_batch
 from expann_tpu_torch.ops import quantize as t_quantize
 from expann_tpu_torch.ops.fused import fused_search
-from expann_tpu_torch.ops.packed import build_packed_i8, pack_blocks, packed_bytes
+from expann_tpu_torch.ops.packed import build_packed_i8, code_rows_bytes, pack_blocks, packed_bytes
 from expann_tpu_torch.ops.topk import flat_topk, flat_topk_plain, quantize_corpus_i8, quantize_query_i8
 from expann_tpu_torch.utils.persist import graph_from_numpy, graph_to_numpy, load_index
 
@@ -407,7 +407,9 @@ def test_compression_flip_rebuilds_an_s8_layout(gauss, jax_compressed):
 def test_packed_budget_sends_queries_to_the_gather_route(gauss, jax_compressed, monkeypatch):
     """Over PACKED_BUDGET_BYTES no layout is built and every chunk takes
     the per-iteration gather route, as the JAX engine's guard does
-    (antitopo.py:362-381): for a compressed engine the uint8 beam."""
+    (antitopo.py:362-381): for a compressed engine the uint8 beam.  A
+    budget below the s8 blocks still admits the s8 code rows, so the
+    budget here is below those too."""
     _, q, _ = gauss
     _, path = jax_compressed
     calls = []
@@ -415,7 +417,7 @@ def test_packed_budget_sends_queries_to_the_gather_route(gauss, jax_compressed, 
     monkeypatch.setattr(t_antitopo, "query_batch", lambda *a, **kw: calls.append(kw) or real(*a, **kw))
     eng = _port_engine(path, use_packed=True, use_fused=True, use_compression=True)
     need = packed_bytes(N + 1, eng.graph.adj_bottom.shape[1], 128, "i8")
-    monkeypatch.setattr(t_antitopo, "PACKED_BUDGET_BYTES", need - 1)
+    monkeypatch.setattr(t_antitopo, "PACKED_BUDGET_BYTES", code_rows_bytes(N + 1, 128) - 1)
     ids = eng.query_k_batch(q, K)
     assert eng.graph.layout is None and calls and all(kw["compressed"] for kw in calls)
     monkeypatch.setattr(t_antitopo, "PACKED_BUDGET_BYTES", need)
